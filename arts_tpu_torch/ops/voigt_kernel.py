@@ -1,0 +1,425 @@
+"""The lines x frequencies Voigt contraction: the CUDA kernel, its plain
+PyTorch version, and the tensor code around them (port of
+arts_tpu/ops/voigt_kernel.py).
+
+    out[z, f] = Re sum_l s_l (w(z_l(f)) - wcut_l)  over |f - f0_l| <= cut_l,
+    z_l(f) = inv_gd_l (f - f0_l) + i z_imag_l,
+
+for every atmospheric level z at once (JAX vmaps the kernel over levels;
+here levels are an explicit leading axis and one launch covers them all).
+
+Around the kernel, in tensor code on the device:
+  * lines are padded to whole blocks of tl (padded lines: z_imag = 1,
+    cutoff = -1, so they never land inside a window) and frequencies to
+    whole tiles of tf (repeating the last frequency);
+  * `_classify_visits` marks the (level, tile, block) pairs whose cutoff
+    windows meet the tile; `_multipole_far` takes the provably far pairs
+    out of that set and evaluates them as a 12-term pole expansion;
+  * `_visit_lists` turns the marks into per-(level, tile) lists of visited
+    blocks, which the kernel walks.
+
+Per (tile, block) the kernel chooses the cheapest valid w(z) tier from the
+lower bound |z|^2 >= (igd_min gap)^2 + zi_min^2: deep (1-term Laurent),
+asym (3 terms at f32, 4 at f64), mid (6 / 8 terms) or the Weideman rational
+blended with the asymptotic series.  The plain version applies the same
+rule with dense masked tensor ops, so the two agree to roundoff.
+
+Not ported, because they exist for the TPU's static grid: max_visits,
+voigt_visit_bound and tune_lbl_kernel (a CUDA block reads its own visit
+count), sub-tiles (nsub), the coarse-grid far field, and the approximate
+reciprocal with its Newton step (the card divides exactly).
+"""
+
+import math
+
+import torch
+
+from .. import _cuda
+from .wofz import _weideman_coeffs
+
+_INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
+_ASYM_R2 = 512.0
+_DEEP_R2 = 1.0e6
+_MP_TERMS = 12
+_MP_KAPPA = 3.5
+TF, TL = 256, 128  # frequency tile (threads per block) and line block
+# Laurent coefficients c_k = (2k-1)!!/2^k of w ~ i/(sqrt(pi) z) sum c_k z^-2k
+_LAURENT_C = (1.0, 0.5, 0.75, 15.0 / 8.0, 105.0 / 16.0, 945.0 / 32.0,
+              10395.0 / 64.0, 135135.0 / 128.0)
+
+LINE_COLS = ("f0", "inv_gd", "z_imag", "s_re", "s_im", "cutoff", "swc")
+EXT_COLS = ("f0_min", "f0_max", "igd_min", "zi_min")
+
+
+def _tier_params(dtype):
+    """(mid gate |z|^2, mid terms, asym terms) per precision."""
+    return (36.0, 6, 3) if dtype == torch.float32 else (150.0, 8, 4)
+
+
+def weideman_order(dtype):
+    """Weideman rational order: 16 reaches float32 roundoff, 24 float64."""
+    return 16 if dtype == torch.float32 else 24
+
+
+def pair_flops(dtype):
+    """Floating-point operations per (line, frequency) pair of each tier,
+    counted from csrc/voigt_sum.cu (add, multiply and divide count 1, a
+    fused multiply-add 2), including the 7 shared by every tier (the
+    frequency offset, z, the strength product, the cutoff subtraction and
+    the accumulation).  "weideman_series" is a pair of a Weideman-tier
+    block whose own |z|^2 > 512 takes the series instead of the rational.
+    """
+    _, mid_terms, asym_terms = _tier_params(dtype)
+    n = weideman_order(dtype)
+    series = lambda k: 23 + 7 * (k - 1)
+    return {
+        "deep": 7 + 7,
+        "asym": 7 + series(asym_terms),
+        "mid": 7 + series(mid_terms),
+        "weideman_series": 7 + 3 + series(asym_terms),
+        "weideman": 7 + 3 + 33 + 7 * n,
+    }
+
+
+# ---------------------------------------------------------------------------
+# w(z) tiers as real pairs (the plain version's arithmetic, as in the kernel)
+# ---------------------------------------------------------------------------
+
+
+def _wofz_weideman(zr, zi, Lw, a):
+    dr = Lw + zi  # Re(L - iz)
+    di = -zr  # Im(L - iz)
+    inv_d2 = 1.0 / (dr * dr + di * di)
+    nr = Lw - zi  # Re(L + iz)
+    ni = zr
+    Zr = (nr * dr + ni * di) * inv_d2
+    Zi = (ni * dr - nr * di) * inv_d2
+    pr = torch.zeros_like(zr)
+    pi = torch.zeros_like(zr)
+    for c in a:
+        pr, pi = pr * Zr - pi * Zi + c, pr * Zi + pi * Zr
+    t_r = (2.0 * (pr * dr + pi * di)) * inv_d2 + _INV_SQRT_PI
+    t_i = (2.0 * (pi * dr - pr * di)) * inv_d2
+    return (t_r * dr + t_i * di) * inv_d2, (t_i * dr - t_r * di) * inv_d2
+
+
+def _wofz_asym(zr, zi, terms):
+    inv_r2 = 1.0 / (zr * zr + zi * zi)
+    u_r = (zr * zr - zi * zi) * inv_r2 * inv_r2
+    u_i = (-2.0 * zr * zi) * inv_r2 * inv_r2
+    cs = _LAURENT_C[:terms]
+    s_r = torch.full_like(zr, cs[-1])
+    s_i = torch.zeros_like(zr)
+    for c in reversed(cs[:-1]):
+        s_r, s_i = s_r * u_r - s_i * u_i + c, s_r * u_i + s_i * u_r
+    f_r = zi * inv_r2 * _INV_SQRT_PI
+    f_i = zr * inv_r2 * _INV_SQRT_PI
+    return f_r * s_r - f_i * s_i, f_r * s_i + f_i * s_r
+
+
+def _wofz_deep(zr, zi):
+    inv = 1.0 / (zr * zr + zi * zi) * _INV_SQRT_PI
+    return zi * inv, zr * inv
+
+
+def _wofz_parts(zr, zi, Lw, a, asym_terms):
+    """Weideman blended with the asymptotic series at |z|^2 > 512."""
+    big = zr * zr + zi * zi > _ASYM_R2
+    w_r, w_i = _wofz_weideman(zr, zi, Lw, a)
+    safe = torch.full_like(zr, 100.0)
+    wa_r, wa_i = _wofz_asym(torch.where(big, zr, safe), torch.where(big, zi, safe),
+                            asym_terms)
+    return torch.where(big, wa_r, w_r), torch.where(big, wa_i, w_i)
+
+
+# ---------------------------------------------------------------------------
+# tensor code around the kernel
+# ---------------------------------------------------------------------------
+
+
+def _multipole_far(f_flat, t_lo, t_hi, f0, igd, zi, sr, si, cutoff, swc,
+                   igd_min, zi_min, nl, tl, terms=_MP_TERMS, kappa=_MP_KAPPA):
+    """Fast-multipole Lorentzian far field.
+
+    Beyond the asymptotic gate each line's s w(z) is a rational function
+    with poles at f0_l - i G0_l; a block of lines collapses to one
+    `terms`-term expansion around its pole centroid c,
+    sum_l s_l w_l(f) ~ sum_j M_j (R/(f - c))^j, valid for |f - c| >= kappa R.
+    Line arrays are [Z, nl*tl]; t_lo/t_hi [nf].  Returns
+    (far [Z, nf, nl] bool, mp [Z, nf*tf]).
+    """
+    dtype = f_flat.dtype
+    Z = f0.shape[0]
+    blk = lambda x: x.view(Z, nl, tl)
+    igd_b = blk(igd)
+    igd_s = torch.where(igd_b > 0, igd_b, torch.ones_like(igd_b))
+    G0 = blk(zi) / igd_s  # Lorentz HWHM in frequency
+    f0b = blk(f0)
+    c_re = f0b.mean(-1)  # [Z, nl] pole centroid
+    c_im = -G0.mean(-1)
+    dp = torch.complex(f0b - c_re[..., None], -(G0 + c_im[..., None]))
+    R = torch.clamp(torch.sqrt((dp.abs() ** 2).amax(-1)), min=1.0)
+    q = dp / R[..., None]  # scaled pole offsets, |q| <= 1
+
+    # per-line pole strengths b_k = (i s/sqrt(pi)) c_k / igd^(2k+1), scaled
+    # by R^-(2k+1) so every moment term is O(1) in float32
+    is_c = 1j * torch.complex(blk(sr), blk(si)) * _INV_SQRT_PI
+    A = [is_c * (_LAURENT_C[k] / (igd_s * R[..., None]) ** (2 * k + 1))
+         for k in range(3)]
+    qp = [torch.ones_like(q)]
+    for _ in range(terms - 1):
+        qp.append(qp[-1] * q)
+    M = []  # M_j = sum_l sum_k binom(j-1, 2k) A_kl q_l^(j-2k-1)
+    for j in range(1, terms + 1):
+        acc = 0.0
+        for k in range(3):
+            m = j - 2 * k - 1
+            if m >= 0:
+                acc = acc + math.comb(j - 1, 2 * k) * (A[k] * qp[m])
+        M.append(acc.sum(-1))  # [Z, nl] complex
+    swc_sum = blk(swc).sum(-1)
+
+    # far classification per (tile, block)
+    gap = torch.clamp(torch.maximum(c_re[:, None, :] - t_hi[None, :, None],
+                                    t_lo[None, :, None] - c_re[:, None, :]), min=0.0)
+    far = gap * gap + (c_im * c_im)[:, None, :] >= ((kappa * R) ** 2)[:, None, :]
+    # every line's |z|^2 must clear the asymptotic gate
+    gmin = igd_min[:, None, :] * gap
+    far &= gmin * gmin + (zi_min * zi_min)[:, None, :] > 2.0 * _ASYM_R2
+    # the tile must sit inside every line's cutoff window (padded lines'
+    # inverted windows exclude their block)
+    win_in_lo = (f0b - blk(cutoff)).amax(-1)
+    win_in_hi = (f0b + blk(cutoff)).amin(-1)
+    far &= (t_lo[None, :, None] >= win_in_lo[:, None, :]) & (
+        t_hi[None, :, None] <= win_in_hi[:, None, :])
+
+    # evaluation: u = R/(f - c), powers contracted over blocks
+    tf = f_flat.shape[0] // t_lo.shape[0]
+    farf = far.repeat_interleave(tf, dim=1)  # [Z, F, nl]
+    den = torch.complex(f_flat[None, :, None] - c_re[:, None, :],
+                        (-c_im)[:, None, :].expand(farf.shape))
+    u = torch.where(farf, R[:, None, :] / den, torch.zeros_like(den))
+    mp = torch.zeros(farf.shape[:2], dtype=dtype, device=f_flat.device)
+    U = u
+    with _cuda.full_f32_matmul():
+        for j in range(terms):
+            Mc = M[j][..., None]  # [Z, nl, 1]
+            mp = mp + (U.real @ Mc.real - U.imag @ Mc.imag)[..., 0]
+            if j < terms - 1:
+                U = U * u
+        mp = mp - (farf.to(dtype) @ swc_sum[..., None])[..., 0]
+    return far, mp
+
+
+def _pad_lines(nl, tl, *cols):
+    """Pad [Z, L] line columns (f0, inv_gd, z_imag, s_re, s_im, cutoff,
+    swc) to nl*tl lines: z_imag 1 keeps the block minima meaningful,
+    cutoff -1 keeps padded lines out of every window."""
+    L = cols[0].shape[-1]
+    pad = nl * tl - L
+    if not pad:
+        return cols
+    fill = dict(z_imag=1.0, cutoff=-1.0)
+    return tuple(
+        torch.nn.functional.pad(c, (0, pad), value=fill.get(name, 0.0))
+        for name, c in zip(LINE_COLS, cols)
+    )
+
+
+def _classify_visits(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, swc,
+                     nf, tf, nl, tl):
+    """visit [Z, nf, nl]: the block's cutoff windows meet the tile and it
+    is not left to the multipole far field.  Also returns the far field
+    [Z, nf*tf] and the block extrema [Z, 4, nl] the kernel reads."""
+    Z = f0.shape[0]
+    blk = lambda x: x.view(Z, nl, tl)
+    win_lo = blk(f0 - cutoff).amin(-1)
+    win_hi = blk(f0 + cutoff).amax(-1)
+    ext = torch.stack([blk(f0).amin(-1), blk(f0).amax(-1),
+                       blk(inv_gd).amin(-1), blk(z_imag).amin(-1)], 1)
+    tiles = f_grid.view(nf, tf)
+    t_lo, t_hi = tiles[:, 0], tiles[:, -1]
+    visit = (win_hi[:, None, :] >= t_lo[None, :, None]) & (
+        win_lo[:, None, :] <= t_hi[None, :, None])
+    far, mp = _multipole_far(f_grid, t_lo, t_hi, f0, inv_gd, z_imag, s_re, s_im,
+                             cutoff, swc, ext[:, 2], ext[:, 3], nl, tl)
+    return visit & ~far, mp, ext.contiguous()
+
+
+def _visit_lists(visit):
+    """(blkidx [Z, nf, nl] int32, nvisit [Z, nf] int32): the visited
+    blocks of each (level, tile) first, in ascending order; the slots past
+    nvisit repeat the last visited block."""
+    nl = visit.shape[-1]
+    nvisit = visit.sum(-1).to(torch.int32)
+    order = torch.argsort((~visit).to(torch.int32), dim=-1, stable=True)
+    last = order.gather(-1, (nvisit.long() - 1).clamp(min=0)[..., None])
+    jidx = torch.arange(nl, device=visit.device)
+    blkidx = torch.where(jidx < nvisit[..., None], order, last)
+    return blkidx.to(torch.int32).contiguous(), nvisit.contiguous()
+
+
+def weideman_table(n, dtype, device):
+    """[n + 1]: the Weideman scale L, then the n polynomial coefficients."""
+    Lw, a = _weideman_coeffs(n)
+    return torch.tensor((Lw,) + a, dtype=dtype, device=device)
+
+
+def voigt_inputs(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
+                 wcut_im):
+    """The kernel's inputs (f, lines, ext, blkidx, nvisit, wcoef) and the
+    multipole far field for [Z, L] line columns on an [F] grid."""
+    tf, tl = TF, TL
+    F = f_grid.shape[0]
+    L = f0.shape[-1]
+    nf = -(-F // tf)
+    nl = -(-L // tl)
+    if nf * tf > F:
+        f_grid = torch.cat([f_grid, f_grid[-1:].expand(nf * tf - F)])
+    swc = s_re * wcut_re - s_im * wcut_im
+    cols = _pad_lines(nl, tl, f0, inv_gd, z_imag, s_re, s_im, cutoff, swc)
+    visit, mp, ext = _classify_visits(f_grid, *cols, nf, tf, nl, tl)
+    blkidx, nvisit = _visit_lists(visit)
+    lines = torch.stack(cols, 1).contiguous()  # [Z, 7, nl*tl]
+    wcoef = weideman_table(weideman_order(f_grid.dtype), f_grid.dtype, f_grid.device)
+    return (f_grid.contiguous(), lines, ext, blkidx, nvisit, wcoef), mp
+
+
+def voigt_sum(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im,
+              plain=False):
+    """Re sum_l s_l (w(z_l(f)) - wcut_l) masked to |f - f0_l| <= cut_l.
+
+    f_grid [F]; line columns [L] or [Z, L] (one row per level); returns
+    [F] or [Z, F].  Frequencies and f0 should share a common anchor shift
+    for float32.  cutoff must be finite (1e30 with wcut 0 means none).
+    plain=True runs the kernel's plain PyTorch version on any device.
+    """
+    one = f0.dim() == 1
+    cols = [c[None] if one else c for c in
+            (f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im)]
+    args, mp = voigt_inputs(f_grid, *cols)
+    out = ((voigt_kernel_plain if plain else voigt_kernel)(*args) + mp)[:, : f_grid.shape[0]]
+    return out[0] if one else out
+
+
+# ---------------------------------------------------------------------------
+# the kernel and its plain version
+# ---------------------------------------------------------------------------
+
+
+def voigt_kernel(f, lines, ext, blkidx, nvisit, wcoef):
+    """[Z, nf*tf] contraction over each (level, tile)'s visited blocks.
+
+    f [nf*tf]; lines [Z, 7, nl*tl] (LINE_COLS); ext [Z, 4, nl] (EXT_COLS);
+    blkidx [Z, nf, nl] and nvisit [Z, nf] int32; wcoef [n+1].  On a CUDA
+    tensor this launches csrc/voigt_sum.cu (one block per (tile, level),
+    one thread per frequency); on a CPU tensor it runs the plain version.
+    """
+    if f.device.type == "cpu":
+        return voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef)
+    dev, dt = f.device, f.dtype
+    Z, nc, Lp = lines.shape
+    nl = ext.shape[-1]
+    nf = nvisit.shape[-1]
+    tf = f.shape[0] // nf
+    tl = Lp // nl
+    n = wcoef.shape[0] - 1
+    if dev.type != "cuda" or dt not in (torch.float32, torch.float64):
+        raise ValueError(f"voigt_kernel: unsupported {dt} on {dev}")
+    if nc != 7 or tl * nl != Lp or tf * nf != f.shape[0] or not 0 < tf <= 1024:
+        raise ValueError("voigt_kernel: inconsistent tile or block shapes")
+    if (7 * tl + n + 1) * f.element_size() > 48 * 1024:
+        raise ValueError(f"voigt_kernel: line block tl={tl} exceeds shared memory")
+    _cuda.check("f", f, dev, dt)
+    _cuda.check("lines", lines, dev, dt, (Z, 7, Lp))
+    _cuda.check("ext", ext, dev, dt, (Z, 4, nl))
+    _cuda.check("blkidx", blkidx, dev, torch.int32, (Z, nf, nl))
+    _cuda.check("nvisit", nvisit, dev, torch.int32, (Z, nf))
+    _cuda.check("wcoef", wcoef, dev, dt)
+    out = torch.empty((Z, nf * tf), dtype=dt, device=dev)
+    if Z and nf:
+        _cuda.launch(
+            "voigt_sum", dt, _cuda.ptr(f), _cuda.ptr(lines), _cuda.ptr(ext),
+            _cuda.ptr(blkidx), _cuda.ptr(nvisit), _cuda.ptr(wcoef),
+            _cuda.ptr(out), Z, nf, nl, tl, tf, n,
+        )
+    return out
+
+
+def _level_pairs(f, lines, ext, blkidx, nvisit, z, S):
+    """Dense [nf, S, tl, tf] view of level z's first S visit slots:
+    (tier [nf, S] with 4 = slot not visited, line columns [7, nf, S, tl, 1],
+    the frequency offsets df)."""
+    nl = ext.shape[-1]
+    nf = nvisit.shape[-1]
+    tl = lines.shape[-1] // nl
+    tiles = f.view(nf, -1)
+    t_lo, t_hi = tiles[:, 0:1], tiles[:, -1:]
+    mid_r2 = _tier_params(f.dtype)[0]
+    jb = blkidx[z, :, :S].long()  # [nf, S]
+    e = ext[z][:, jb]  # [4, nf, S]
+    gap = torch.clamp(torch.maximum(e[0] - t_hi, t_lo - e[1]), min=0.0)
+    gmin = e[2] * gap
+    bound2 = gmin * gmin + e[3] * e[3]
+    tier = torch.where(bound2 > 2.0 * _DEEP_R2, 0,
+                       torch.where(bound2 > 2.0 * _ASYM_R2, 1,
+                                   torch.where(bound2 > 2.0 * mid_r2, 2, 3)))
+    slot = torch.arange(S, device=f.device)
+    tier = torch.where(slot < nvisit[z, :, None], tier, 4)
+    blk = lines[z].view(7, nl, tl)[:, jb][..., None]  # [7, nf, S, tl, 1]
+    df = tiles[:, None, None, :] - blk[0]
+    return tier, blk, df
+
+
+def voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef):
+    """The plain PyTorch version of voigt_kernel: the same visit lists and
+    tier rule, each tier evaluated densely and selected per block."""
+    Z = lines.shape[0]
+    nf = nvisit.shape[-1]
+    _, mid_terms, asym_terms = _tier_params(f.dtype)
+    Lw, a = wcoef[0], wcoef[1:].tolist()
+    out = torch.zeros((Z, nf, f.shape[0] // nf), dtype=f.dtype, device=f.device)
+    S = int(nvisit.max()) if nvisit.numel() else 0
+    for z in range(Z if S else 0):
+        tier, blk, df = _level_pairs(f, lines, ext, blkidx, nvisit, z, S)
+        _, igd, zi, sr, si, cut, swc = blk
+        zr = igd * df
+        zim = zi.expand_as(zr)
+        t = tier[..., None, None]
+        parts = _wofz_parts(zr, zim, Lw, a, asym_terms)
+        mid = _wofz_asym(zr, zim, mid_terms)
+        asym = _wofz_asym(zr, zim, asym_terms)
+        deep = _wofz_deep(zr, zim)
+        wr, wi = (
+            torch.where(t == 0, d, torch.where(t == 1, s, torch.where(t == 2, m, p)))
+            for d, s, m, p in zip(deep, asym, mid, parts)
+        )
+        vals = (sr * wr - si * wi) - swc
+        keep = (t < 4) & (df.abs() <= cut)
+        out[z] = torch.where(keep, vals, torch.zeros_like(vals)).sum((1, 2))
+    return out.view(Z, -1)
+
+
+def pair_counts(f, lines, ext, blkidx, nvisit):
+    """(line, frequency) pairs the kernel evaluates, per tier of
+    pair_flops: {"visited": {...}, "in_window": {...}}; in-window pairs
+    lie inside their line's cutoff window."""
+    Z = lines.shape[0]
+    S = int(nvisit.max()) if nvisit.numel() else 0
+    names = ("deep", "asym", "mid", "weideman_series", "weideman")
+    visited = dict.fromkeys(names, 0)
+    inwin = dict.fromkeys(names, 0)
+    for z in range(Z if S else 0):
+        tier, blk, df = _level_pairs(f, lines, ext, blkidx, nvisit, z, S)
+        zr = blk[1] * df
+        big = zr * zr + blk[2] * blk[2] > _ASYM_R2
+        t = tier[..., None, None].expand_as(df)
+        inside = df.abs() <= blk[5]
+        cls = {
+            "deep": t == 0, "asym": t == 1, "mid": t == 2,
+            "weideman_series": (t == 3) & big, "weideman": (t == 3) & ~big,
+        }
+        for k, m in cls.items():
+            visited[k] += int(m.sum())
+            inwin[k] += int((m & inside).sum())
+    return {"visited": visited, "in_window": inwin}

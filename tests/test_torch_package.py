@@ -1,0 +1,111 @@
+"""Rules of the arts_tpu_torch package: it imports nothing of JAX or
+arts_tpu, its entry points run on the card unless told otherwise, and
+importing it (or collecting the port's tests) builds nothing."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "arts_tpu_torch"
+SOURCES = sorted(p for p in PKG.rglob("*.py")
+                 if "_build" not in p.relative_to(PKG).parts) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "arts_tpu")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_arts_tpu_import(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.fixture(scope="module")
+def cpu_objects():
+    """Small CPU inputs for every entry point."""
+    from arts_tpu_torch.disort import DisortInput
+    from arts_tpu_torch.scene import build_scene
+
+    scene, f = build_scene(n_lev=4, n_freq=8, n_lines=4, device="cpu", dtype=torch.float64)
+    pts = scene.atm.at(scene.atm.z)
+    F, L = 2, 3
+    one = torch.ones(F, dtype=torch.float64)
+    inp = DisortInput(tau=torch.ones(F, L, dtype=torch.float64), omega=0.5 * torch.ones(F, L, dtype=torch.float64),
+                      leg=torch.ones(F, L, 16, dtype=torch.float64), f=torch.zeros(F, L, dtype=torch.float64),
+                      b_levels=torch.ones(F, L + 1, dtype=torch.float64), fisot=0 * one,
+                      albedo=0 * one, b_surf=one, b_top=0 * one)
+    return scene, f, pts, inp
+
+
+def _entry_points():
+    from arts_tpu_torch import gas_absorption_profile, simulate_allsky
+    from arts_tpu_torch.atm.standard import standard_atmosphere
+    from arts_tpu_torch.convert import scene_from_numpy
+    from arts_tpu_torch.disort import disort
+    from arts_tpu_torch.io.hitran import read_par
+    from arts_tpu_torch.lbl.catalog import build_catalog
+    from arts_tpu_torch.lbl.partfun import rigid_rotor_table
+    from arts_tpu_torch.lbl.voigt import absorption, absorption_kernel
+    from arts_tpu_torch.scene import build_scene, synth_par_rows
+
+    lines = lambda: read_par(synth_par_rows(4), ["H2O", "O2"])
+    return {
+        "standard_atmosphere": lambda o: standard_atmosphere(n_levels=4),
+        "build_scene": lambda o: build_scene(n_lev=4, n_freq=8, n_lines=4),
+        "build_catalog": lambda o: build_catalog(lines()),
+        "rigid_rotor_table": lambda o: rigid_rotor_table(2, [174.6, 215.7]),
+        "scene_from_numpy": lambda o: scene_from_numpy({}),
+        "gas_absorption_profile": lambda o: gas_absorption_profile(o[0], o[1]),
+        "simulate_allsky": lambda o: simulate_allsky(o[0], o[1]),
+        "disort": lambda o: disort(o[3]),
+        "absorption": lambda o: absorption(o[1], o[0].cat, o[0].pf, o[2].t[0],
+                                           o[2].p[0], o[2].vmr[0]),
+        "absorption_kernel": lambda o: absorption_kernel(o[1], o[0].cat, o[0].pf,
+                                                         o[2].t, o[2].p, o[2].vmr),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_point_defaults_to_the_card(name, cpu_objects):
+    """Called without device=, an entry point asks for CUDA and raises
+    where there is none, instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name](cpu_objects)
+
+
+def test_import_and_collection_need_no_triton_or_nvcc(tmp_path):
+    """Every module imports, and the port's tests collect, with triton
+    unimportable and no nvcc on PATH or under CUDA_HOME."""
+    path = os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc"))
+    )
+    env = dict(os.environ, PATH=path, CUDA_HOME=str(tmp_path / "no-cuda"))
+    tests = sorted(str(p) for p in (ROOT / "tests").glob("test_torch_*.py"))
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['triton'] = None\n"
+        "import arts_tpu_torch\n"
+        "for m in pkgutil.walk_packages(arts_tpu_torch.__path__, 'arts_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import pytest\n"
+        f"sys.exit(pytest.main(['--collect-only', '-q', '-p', 'no:cacheprovider', *{tests!r}]))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "collected" in r.stdout, r.stdout[-2000:]
