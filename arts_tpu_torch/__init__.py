@@ -1,12 +1,19 @@
 """arts_tpu_torch: the PyTorch/CUDA port of arts_tpu for NVIDIA Hopper.
 
-The all-sky main path (line-by-line gas absorption through the Voigt
-kernel, then the fused DISORT solve) with hand-written CUDA kernels for
-sm_90a, each beside its plain PyTorch version.  Entry points run on the
-card unless the caller passes device="cpu"; without a card they raise.
-Importing the package touches no device and changes no global setting.
+Two paths so far, with hand-written CUDA kernels for sm_90a, each beside
+its plain PyTorch version:
+  * all-sky: line-by-line gas absorption through the Voigt kernel, then
+    the fused DISORT solve (gas_absorption_profile, simulate_allsky);
+  * Zeeman: polarized propagation matrices through the polarized Voigt
+    kernel (lbl.zeeman.zeeman_propmat, backend="pallas") or the
+    parent-pole kernel (lbl.zeeman.zeeman_propmat_profile), and the
+    polarized clear-sky radiance (simulate_clearsky_polarized).
+Entry points run on the card unless the caller passes device="cpu";
+without a card they raise.  Importing the package touches no device and
+changes no global setting.
 """
 
+from .fwd import ZeemanScene, simulate_clearsky_polarized  # noqa: F401
 from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky  # noqa: F401
 
 __version__ = "0.1.0"

@@ -25,7 +25,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD = pathlib.Path(__file__).parent / "_build"
-SOURCES = ("voigt_sum.cu", "disort_fused.cu")
+SOURCES = ("voigt_sum.cu", "disort_fused.cu", "zeeman_mp.cu")
 # no --use_fast_math: the tolerances need IEEE divides, sqrt and exp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel, incremented by each wrapper where it launches
-LAUNCHES = {"voigt_sum": 0, "disort_stage1": 0, "disort_stage23": 0}
+LAUNCHES = {"voigt_sum": 0, "disort_stage1": 0, "disort_stage23": 0,
+            "voigt_sum_pol": 0, "zeeman_mp": 0}
 
 # build facts for chip_smoke.py: seconds, library path, ptxas report
 BUILD_INFO = {}
@@ -161,6 +162,11 @@ _SIGNATURES = {
     # gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, P, y, utop, vtop, ubot, vbot,
     # n, L, B, stream
     "disort_stage23": [_P] * 15 + [_I] * 3 + [_P],
+    # f, lines, ext, blkidx, nvisit, wcoef, pol, tab, out, Z, nf, nl, tl,
+    # tf, nweid, stream
+    "voigt_sum_pol": [_P] * 9 + [_I] * 6 + [_P],
+    # f, rec, out, Z, F, NP, P, tf, stream
+    "zeeman_mp": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 

@@ -1,7 +1,8 @@
 """1D atmosphere on an ascending altitude grid (port of arts_tpu/atm/field.py).
 
-t and vmr interpolate linearly in altitude, p log-linearly, clamped at
-the grid ends.  Any leading shape of the query altitudes is kept.
+t, vmr and the magnetic field interpolate linearly in altitude, p
+log-linearly, clamped at the grid ends.  Any leading shape of the query
+altitudes is kept.
 """
 
 import dataclasses
@@ -16,6 +17,7 @@ class AtmPointData:
     t: torch.Tensor  # [...] temperature [K]
     p: torch.Tensor  # [...] pressure [Pa]
     vmr: torch.Tensor  # [..., S] volume mixing ratios
+    mag: torch.Tensor  # [..., 3] magnetic field (u=E, v=N, w=Up) [T]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +26,7 @@ class Atmosphere1D:
     t: torch.Tensor  # [N]
     p: torch.Tensor  # [N]
     vmr: torch.Tensor  # [S, N]
+    mag: torch.Tensor | None = None  # [3, N] magnetic field [T]; None = 0
 
     def at(self, alt) -> AtmPointData:
         z = self.z
@@ -34,10 +37,14 @@ class Atmosphere1D:
         def lin(f):
             return f[..., i0] * (1.0 - w) + f[..., i1] * w
 
+        t = lin(self.t)
+        mag = (t.new_zeros(t.shape + (3,)) if self.mag is None
+               else torch.movedim(lin(self.mag), 0, -1))
         return AtmPointData(
-            t=lin(self.t),
+            t=t,
             p=torch.exp(lin(torch.log(self.p))),
             vmr=torch.movedim(lin(self.vmr), 0, -1),
+            mag=mag,
         )
 
 

@@ -1,8 +1,8 @@
-"""Carry a scene across from numpy arrays.
+"""Carry a scene or a catalog across from numpy arrays, so that the port
+computes from exactly the state another implementation holds.
 
 scene_from_numpy takes the leaves of an all-sky scene as a nested dict of
-numpy arrays, so that the port computes from exactly the state another
-implementation holds:
+numpy arrays:
 
     {"atm": {"z", "t", "p", "vmr"},
      "cat": {the LineCatalog fields},
@@ -10,6 +10,9 @@ implementation holds:
      "scatterers": [{"ext", "ssa", "g"}, ...],   # Henyey-Greenstein
      "surface_temperature": scalar,
      "surface_albedo": scalar (optional, default 0)}
+
+zeeman_catalog_from_numpy and padded_zeeman_catalog_from_numpy take a
+Zeeman catalog and its bucketed form the same way.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ from .atm import Atmosphere1D
 from .fwd_allsky import AllskyScene
 from .lbl.catalog import catalog_from_arrays
 from .lbl.partfun import PartFunTable
+from .lbl.zeeman import PaddedZeemanCatalog, ZeemanCatalog
 from .scattering import HenyeyGreenstein
 
 
@@ -34,4 +38,38 @@ def scene_from_numpy(d, device=None, dtype=None) -> AllskyScene:
                          for s in d.get("scatterers", ())),
         surface_temperature=t(d["surface_temperature"]),
         surface_albedo=t(d.get("surface_albedo", 0.0)),
+    )
+
+
+def _tensors(dev, dt):
+    """(integer arrays -> int64 tensors, float arrays -> dt tensors) on dev."""
+    ints = lambda a: torch.tensor(np.asarray(a).astype(np.int64), device=dev)
+    flts = lambda a: torch.tensor(np.asarray(a, dtype=np.float64), dtype=dt, device=dev)
+    return ints, flts
+
+
+def zeeman_catalog_from_numpy(d, device=None, dtype=None) -> ZeemanCatalog:
+    """ZeemanCatalog from {"cat": {the LineCatalog fields}, "idx": [3],
+    "split": [3], "strength": [3]} numpy arrays (pi, sigma-, sigma+)."""
+    dev, dt = resolve(device, dtype)
+    ints, flts = _tensors(dev, dt)
+    return ZeemanCatalog(
+        cat=catalog_from_arrays(d["cat"], dev, dt),
+        idx=tuple(map(ints, d["idx"])),
+        split=tuple(map(flts, d["split"])),
+        strength=tuple(map(flts, d["strength"])),
+    )
+
+
+def padded_zeeman_catalog_from_numpy(d, device=None, dtype=None) -> PaddedZeemanCatalog:
+    """PaddedZeemanCatalog from {"cat": {...}, "parent", "split",
+    "strength", "polidx": one numpy array per bucket}."""
+    dev, dt = resolve(device, dtype)
+    ints, flts = _tensors(dev, dt)
+    return PaddedZeemanCatalog(
+        cat=catalog_from_arrays(d["cat"], dev, dt),
+        parent=tuple(map(ints, d["parent"])),
+        split=tuple(map(flts, d["split"])),
+        strength=tuple(map(flts, d["strength"])),
+        polidx=tuple(map(ints, d["polidx"])),
     )

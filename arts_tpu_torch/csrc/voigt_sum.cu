@@ -1,14 +1,26 @@
 // Voigt lines x frequencies contraction for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel _voigt_kernel / voigt_sum in
-// arts_tpu/ops/voigt_kernel.py (pallas_call at :869).  For every level z
-// and frequency f of a tile it computes
+// Replaces the Pallas TPU kernels _voigt_kernel / voigt_sum (pallas_call at
+// arts_tpu/ops/voigt_kernel.py:869) and _voigt_kernel_pol / voigt_sum_pol
+// (pallas_call at :975).  For every level z and frequency f of a tile it
+// computes
 //
 //   out[z, f] = Re sum_l s_l (w(z_l(f)) - wcut_l)  over |f - f0_l| <= cut_l
 //
 // over the line blocks listed for that (level, tile) by the tensor code in
 // arts_tpu_torch/ops/voigt_kernel.py (visit lists and block extrema built
 // on the device; the multipole far field is added outside the kernel).
+// The polarized instance (NP = 3, Zeeman pseudo-lines) computes
+//
+//   out[z, c, f] = sum_l tab[z, pol_l, c] Re s_l (w(z_l(f)) - wcut_l), c < 7
+//
+// The TPU kernel weights every line's term with its [7] row of pw [L, 7]
+// on the MXU.  Those rows take only three values per level (pi, sigma-,
+// sigma+), so here each thread keeps one sum per polarization, shared by
+// all seven components, and applies the level's [3, 7] table once per
+// frequency after the line loop: 3 accumulators instead of 7, a per-line
+// polarization index in shared memory instead of a [7] row, and fewer
+// roundings than seven weighted sums.
 //
 // Design.  One CUDA block per (frequency tile, level), one thread per
 // frequency: the whole 60-level profile is one launch, where JAX vmaps the
@@ -128,10 +140,13 @@ struct Parts {
 // accumulate one staged line block into this thread's frequency: eight
 // interleaved partial sums (lines l = k mod 8), added as a tree, keep the
 // float32 rounding error of a block near that of the TPU kernel's 8-row
-// accumulator and give the adds eight independent chains
-template <typename T, typename W>
-__device__ __forceinline__ void block_sum(const T* __restrict__ sh, int tl,
-                                          T fv, const W& wofz, T& acc) {
+// accumulator and give the adds eight independent chains.  NP = 3 keeps
+// one set per polarization, selected by the line's index in pol (the
+// selects keep the partials in registers: no dynamic register index).
+template <typename T, int NP, typename W>
+__device__ __forceinline__ void block_sum(const T* __restrict__ sh,
+                                          const int* __restrict__ pol, int tl,
+                                          T fv, const W& wofz, T (&acc)[NP]) {
   const T* f0 = sh;
   const T* igd = sh + tl;
   const T* zi = sh + 2 * tl;
@@ -139,7 +154,12 @@ __device__ __forceinline__ void block_sum(const T* __restrict__ sh, int tl,
   const T* si = sh + 4 * tl;
   const T* cut = sh + 5 * tl;
   const T* swc = sh + 6 * tl;
-  T part[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+  T part[NP][8];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) part[q][k] = T(0);
+  }
   for (int l0 = 0; l0 < tl; l0 += 8) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -149,25 +169,38 @@ __device__ __forceinline__ void block_sum(const T* __restrict__ sh, int tl,
         T wr, wi;
         wofz(igd[l] * df, zi[l], wr, wi);
         const T val = (sr[l] * wr - si[l] * wi) - swc[l];
-        part[k] += tabs(df) <= cut[l] ? val : T(0);
+        const T v = tabs(df) <= cut[l] ? val : T(0);
+        if constexpr (NP == 1) {
+          part[0][k] += v;
+        } else {
+          const int p = pol[l];
+#pragma unroll
+          for (int q = 0; q < NP; ++q) part[q][k] += p == q ? v : T(0);
+        }
       }
     }
   }
-  acc += ((part[0] + part[1]) + (part[2] + part[3])) +
-         ((part[4] + part[5]) + (part[6] + part[7]));
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    acc[q] += ((part[q][0] + part[q][1]) + (part[q][2] + part[q][3])) +
+              ((part[q][4] + part[q][5]) + (part[q][6] + part[q][7]));
+  }
 }
 
 // grid (nf, Z), block tf threads.  f [nf*tf]; lines [Z, 7, nl*tl] as
 // (f0, inv_gd, z_imag, s_re, s_im, cutoff, swc); ext [Z, 4, nl] as
 // (f0_min, f0_max, igd_min, zi_min); blkidx [Z, nf, nl]; nvisit [Z, nf];
-// wcoef [n+1]; out [Z, nf*tf].
-template <typename T>
+// wcoef [n+1]; NP = 1: out [Z, nf*tf] (pol and tab unused).  NP = 3:
+// pol [nl*tl] in 0..2, tab [Z, 3, 7], out [Z, 7, nf*tf].
+template <typename T, int NP>
 __global__ void voigt_sum_kernel(const T* __restrict__ f,
                                  const T* __restrict__ lines,
                                  const T* __restrict__ ext,
                                  const int* __restrict__ blkidx,
                                  const int* __restrict__ nvisit,
                                  const T* __restrict__ wcoef,
+                                 const int* __restrict__ pol,
+                                 const T* __restrict__ tab,
                                  T* __restrict__ out, int nf, int nl, int tl,
                                  int nweid) {
   constexpr bool kF32 = sizeof(T) == 4;
@@ -178,6 +211,7 @@ __global__ void voigt_sum_kernel(const T* __restrict__ f,
   extern __shared__ __align__(16) unsigned char smem[];
   T* sh = reinterpret_cast<T*>(smem);  // [7][tl] line columns
   T* wc = sh + 7 * tl;                 // [nweid + 1] Weideman table
+  int* shp = reinterpret_cast<int*>(wc + nweid + 1);  // NP = 3: [tl]
 
   const int tile = blockIdx.x;
   const int z = blockIdx.y;
@@ -196,13 +230,18 @@ __global__ void voigt_sum_kernel(const T* __restrict__ f,
   const int nv = nvisit[row];
   const int* bl = blkidx + row * nl;
 
-  T acc = T(0);
+  T acc[NP];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) acc[q] = T(0);
   for (int j = 0; j < nv; ++j) {
     const int jb = bl[j];
     __syncthreads();  // the previous block's columns are consumed
     for (int i = tid; i < 7 * tl; i += tf) {
       const int c = i / tl;
       sh[i] = lz[c * lp + static_cast<long>(jb) * tl + (i - c * tl)];
+    }
+    if constexpr (NP > 1) {
+      for (int i = tid; i < tl; i += tf) shp[i] = pol[static_cast<long>(jb) * tl + i];
     }
     __syncthreads();
     // |z|^2 >= (igd_min gap)^2 + zi_min^2 over the whole (tile, block)
@@ -211,29 +250,44 @@ __global__ void voigt_sum_kernel(const T* __restrict__ f,
     const T zmin = ez[3 * nl + jb];
     const T bound2 = mul_rn(gmin, gmin) + mul_rn(zmin, zmin);
     if (bound2 > T(2.0 * kDeepR2)) {
-      block_sum(sh, tl, fv, Deep<T>{}, acc);
+      block_sum(sh, shp, tl, fv, Deep<T>{}, acc);
     } else if (bound2 > T(2.0 * kAsymR2)) {
-      block_sum(sh, tl, fv, Series<T, kAsymTerms>{}, acc);
+      block_sum(sh, shp, tl, fv, Series<T, kAsymTerms>{}, acc);
     } else if (bound2 > mid_gate) {
-      block_sum(sh, tl, fv, Series<T, kMidTerms>{}, acc);
+      block_sum(sh, shp, tl, fv, Series<T, kMidTerms>{}, acc);
     } else {
-      block_sum(sh, tl, fv, Parts<T, kAsymTerms>{wc, nweid}, acc);
+      block_sum(sh, shp, tl, fv, Parts<T, kAsymTerms>{wc, nweid}, acc);
     }
   }
-  out[row * tf + tid] = acc;
+  if constexpr (NP == 1) {
+    out[row * tf + tid] = acc[0];
+  } else {
+    // out[z, c] = sum_p tab[z, p, c] acc[p]; the table is 21 values per
+    // level, read through the read-only cache
+    const T* tz = tab + static_cast<long>(z) * 3 * 7;
+    const long fcount = static_cast<long>(nf) * tf;
+#pragma unroll
+    for (int c = 0; c < 7; ++c) {
+      const T v = (__ldg(tz + c) * acc[0] + __ldg(tz + 7 + c) * acc[1]) +
+                  __ldg(tz + 14 + c) * acc[2];
+      out[(static_cast<long>(z) * 7 + c) * fcount + t0 + tid] = v;
+    }
+  }
 }
 
-template <typename T>
+template <typename T, int NP>
 int launch(const void* f, const void* lines, const void* ext,
            const void* blkidx, const void* nvisit, const void* wcoef,
-           void* out, int Z, int nf, int nl, int tl, int tf, int nweid,
-           void* stream) {
+           const void* pol, const void* tab, void* out, int Z, int nf,
+           int nl, int tl, int tf, int nweid, void* stream) {
   const dim3 grid(nf, Z);
-  const size_t smem = static_cast<size_t>(7 * tl + nweid + 1) * sizeof(T);
-  voigt_sum_kernel<T><<<grid, tf, smem, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = static_cast<size_t>(7 * tl + nweid + 1) * sizeof(T) +
+                      (NP > 1 ? static_cast<size_t>(tl) * sizeof(int) : 0);
+  voigt_sum_kernel<T, NP><<<grid, tf, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(f), static_cast<const T*>(lines),
       static_cast<const T*>(ext), static_cast<const int*>(blkidx),
       static_cast<const int*>(nvisit), static_cast<const T*>(wcoef),
+      static_cast<const int*>(pol), static_cast<const T*>(tab),
       static_cast<T*>(out), nf, nl, tl, nweid);
   return static_cast<int>(cudaGetLastError());
 }
@@ -244,14 +298,34 @@ extern "C" int voigt_sum_f32(const void* f, const void* lines, const void* ext,
                              const void* blkidx, const void* nvisit,
                              const void* wcoef, void* out, int Z, int nf,
                              int nl, int tl, int tf, int nweid, void* stream) {
-  return launch<float>(f, lines, ext, blkidx, nvisit, wcoef, out, Z, nf, nl,
-                       tl, tf, nweid, stream);
+  return launch<float, 1>(f, lines, ext, blkidx, nvisit, wcoef, nullptr,
+                          nullptr, out, Z, nf, nl, tl, tf, nweid, stream);
 }
 
 extern "C" int voigt_sum_f64(const void* f, const void* lines, const void* ext,
                              const void* blkidx, const void* nvisit,
                              const void* wcoef, void* out, int Z, int nf,
                              int nl, int tl, int tf, int nweid, void* stream) {
-  return launch<double>(f, lines, ext, blkidx, nvisit, wcoef, out, Z, nf, nl,
-                        tl, tf, nweid, stream);
+  return launch<double, 1>(f, lines, ext, blkidx, nvisit, wcoef, nullptr,
+                           nullptr, out, Z, nf, nl, tl, tf, nweid, stream);
+}
+
+extern "C" int voigt_sum_pol_f32(const void* f, const void* lines,
+                                 const void* ext, const void* blkidx,
+                                 const void* nvisit, const void* wcoef,
+                                 const void* pol, const void* tab, void* out,
+                                 int Z, int nf, int nl, int tl, int tf,
+                                 int nweid, void* stream) {
+  return launch<float, 3>(f, lines, ext, blkidx, nvisit, wcoef, pol, tab, out,
+                          Z, nf, nl, tl, tf, nweid, stream);
+}
+
+extern "C" int voigt_sum_pol_f64(const void* f, const void* lines,
+                                 const void* ext, const void* blkidx,
+                                 const void* nvisit, const void* wcoef,
+                                 const void* pol, const void* tab, void* out,
+                                 int Z, int nf, int nl, int tl, int tf,
+                                 int nweid, void* stream) {
+  return launch<double, 3>(f, lines, ext, blkidx, nvisit, wcoef, pol, tab,
+                           out, Z, nf, nl, tl, tf, nweid, stream);
 }

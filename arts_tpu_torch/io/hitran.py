@@ -1,8 +1,10 @@
-"""HITRAN .par (160-char fixed-width) reader: parse_par_line and read_par,
-ported from arts_tpu/io/hitran.py (pure Python; no tensors here).
+"""HITRAN .par (160-char fixed-width) reader: parse_par_line, read_par,
+read_par_records, record_state and zeeman_catalog_from_par, ported from
+arts_tpu/io/hitran.py.  Parsing is pure Python; only
+zeeman_catalog_from_par builds tensors.
 
-Not ported yet: files as input, strengths from S (with Q(296)), frequency
-windows and the extended format's trailing quantum states.
+Not ported yet: files as input, strengths from S (with Q(296)) and
+frequency windows.
 """
 
 import dataclasses
@@ -11,6 +13,14 @@ import numpy as np
 
 from .. import constants as const
 from ..lbl.tmodel import Law
+from .quantum import (
+    QuantumState,
+    from_hitran,
+    global_quanta_diatomic,
+    local_quanta_diatomic,
+    merge_states,
+    zeeman_g,
+)
 from .species import ISOTOPOLOGUES
 
 # HITRAN molecule number -> (species, [iso code per local iso number])
@@ -60,6 +70,7 @@ class HitranRecord:
     q_lower: str
     q_local_upper: str = ""
     q_local_lower: str = ""
+    state: QuantumState | None = None  # extended-format trailing states
 
 
 def parse_par_line(line: str) -> HitranRecord:
@@ -88,7 +99,45 @@ def parse_par_line(line: str) -> HitranRecord:
         q_lower=line[82:97].strip(),
         q_local_upper=line[97:112],
         q_local_lower=line[112:127],
+        state=_trailing_state(line),
     )
+
+
+def _trailing_state(line: str):
+    """Extended-format trailing quantum states (after column 160)."""
+    rest = line.rstrip("\n")[160:]
+    if not rest.startswith(","):
+        return None
+    parts = rest.split(",")
+    if len(parts) < 3:
+        return None
+    return from_hitran(parts[1], parts[2])
+
+
+def record_state(rec: HitranRecord):
+    """Best-available QuantumState for a record: the extended trailing
+    states when present, else the classic global+local quanta fields."""
+    if rec.state is not None:
+        return rec.state
+    loc = local_quanta_diatomic(rec.q_local_upper, rec.q_local_lower)
+    glo = global_quanta_diatomic(rec.q_upper, rec.q_lower)
+    if loc is None and not (glo.upper or glo.lower):
+        return None
+    return merge_states(glo, loc)
+
+
+def read_par_records(rows):
+    """HitranRecords of the parseable rows (others, and unknown molecules,
+    are skipped)."""
+    out = []
+    for row in rows:
+        if len(row.rstrip("\n")) < 120:
+            continue
+        try:
+            out.append(parse_par_line(row))
+        except KeyError:  # molecule/isotopologue outside the registry
+            continue
+    return out
 
 
 def read_par(rows, species_list, cutoff=np.inf):
@@ -98,13 +147,7 @@ def read_par(rows, species_list, cutoff=np.inf):
     of each isotopologue."""
     out = []
     iso_ids = {}
-    for row in rows:
-        if len(row.rstrip("\n")) < 120:
-            continue
-        try:
-            r = parse_par_line(row)
-        except KeyError:
-            continue
+    for r in read_par_records(rows):
         meta = ISOTOPOLOGUES.get(r.isotopologue)
         if meta is None or meta.species not in species_list:
             continue
@@ -124,3 +167,38 @@ def read_par(rows, species_list, cutoff=np.inf):
             cutoff=cutoff, ls=ls, isotopologue=r.isotopologue,
         ))
     return out
+
+
+def zeeman_catalog_from_par(rows, species_list, cutoff=np.inf, device=None,
+                            dtype=None):
+    """ZeemanCatalog straight from .par rows, with Lande g factors from
+    each record's quantum state (record_state, then io.quantum.zeeman_g);
+    lines whose state lacks J stay unsplit (g = 0).  Strengths from the
+    Einstein A of each record, as read_par."""
+    from ..lbl.catalog import build_catalog
+    from ..lbl.zeeman import expand_zeeman
+
+    lines = read_par(rows, species_list, cutoff=cutoff)
+    records = [
+        r for r in read_par_records(rows)
+        if ISOTOPOLOGUES.get(r.isotopologue) is not None
+        and ISOTOPOLOGUES[r.isotopologue].species in species_list
+    ]
+    if len(records) != len(lines):
+        raise RuntimeError("read_par and read_par_records disagree on the rows")
+    jus, jls, gus, gls = [], [], [], []
+    for r in records:
+        st = record_state(r)
+        if st is None or not st.has("J"):
+            ju = jl = gu = gl = 0.0
+        else:
+            ju, jl = (float(x) for x in st.at("J"))
+            gu, gl = zeeman_g(r.isotopologue, st)
+        jus.append(ju)
+        jls.append(jl)
+        gus.append(gu)
+        gls.append(gl)
+    order = np.argsort([ln["f0"] for ln in lines])
+    pick = lambda a: [a[i] for i in order]
+    cat = build_catalog(pick(lines), device=device, dtype=dtype)
+    return expand_zeeman(cat, pick(jus), pick(jls), pick(gus), pick(gls))

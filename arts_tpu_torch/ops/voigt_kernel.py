@@ -1,5 +1,5 @@
-"""The lines x frequencies Voigt contraction: the CUDA kernel, its plain
-PyTorch version, and the tensor code around them (port of
+"""The lines x frequencies Voigt contraction: the CUDA kernels, their plain
+PyTorch versions, and the tensor code around them (port of
 arts_tpu/ops/voigt_kernel.py).
 
     out[z, f] = Re sum_l s_l (w(z_l(f)) - wcut_l)  over |f - f0_l| <= cut_l,
@@ -7,6 +7,12 @@ arts_tpu/ops/voigt_kernel.py).
 
 for every atmospheric level z at once (JAX vmaps the kernel over levels;
 here levels are an explicit leading axis and one launch covers them all).
+The polarized form (voigt_sum_pol, for Zeeman pseudo-lines) weights each
+line's term with its polarization's row of a per-level [3, 7] table,
+
+    out[z, c, f] = sum_l tab[z, pol_l, c] Re s_l (w(z_l(f)) - wcut_l),
+
+sharing one w(z) per (line, frequency) across the 7 components.
 
 Around the kernel, in tensor code on the device:
   * lines are padded to whole blocks of tl (padded lines: z_imag = 1,
@@ -17,6 +23,8 @@ Around the kernel, in tensor code on the device:
     out of that set and evaluates them as a 12-term pole expansion;
   * `_visit_lists` turns the marks into per-(level, tile) lists of visited
     blocks, which the kernel walks.
+The far field of the polarized form carries the 7 components: each
+line's moments are weighted by its [7] row before the block sums.
 
 Per (tile, block) the kernel chooses the cheapest valid w(z) tier from the
 lower bound |z|^2 >= (igd_min gap)^2 + zi_min^2: deep (1-term Laurent),
@@ -138,15 +146,17 @@ def _wofz_parts(zr, zi, Lw, a, asym_terms):
 
 
 def _multipole_far(f_flat, t_lo, t_hi, f0, igd, zi, sr, si, cutoff, swc,
-                   igd_min, zi_min, nl, tl, terms=_MP_TERMS, kappa=_MP_KAPPA):
+                   igd_min, zi_min, nl, tl, pw=None, terms=_MP_TERMS,
+                   kappa=_MP_KAPPA):
     """Fast-multipole Lorentzian far field.
 
     Beyond the asymptotic gate each line's s w(z) is a rational function
     with poles at f0_l - i G0_l; a block of lines collapses to one
     `terms`-term expansion around its pole centroid c,
     sum_l s_l w_l(f) ~ sum_j M_j (R/(f - c))^j, valid for |f - c| >= kappa R.
-    Line arrays are [Z, nl*tl]; t_lo/t_hi [nf].  Returns
-    (far [Z, nf, nl] bool, mp [Z, nf*tf]).
+    Line arrays are [Z, nl*tl]; t_lo/t_hi [nf]; pw None or [Z, nl*tl, C]
+    per-line component weights.  Returns (far [Z, nf, nl] bool, mp
+    [Z, nf*tf], or [Z, nf*tf, C] with pw).
     """
     dtype = f_flat.dtype
     Z = f0.shape[0]
@@ -169,6 +179,12 @@ def _multipole_far(f_flat, t_lo, t_hi, f0, igd, zi, sr, si, cutoff, swc,
     qp = [torch.ones_like(q)]
     for _ in range(terms - 1):
         qp.append(qp[-1] * q)
+    if pw is None:
+        msum = lambda x: x.sum(-1)[..., None]  # [Z, nl, 1]
+    else:  # weighted block sums [Z, nl, C]
+        pw_b = pw.view(Z, nl, tl, -1)
+        msum = lambda x: torch.einsum(
+            "zbt,zbtc->zbc", x, pw_b.to(x.dtype))
     M = []  # M_j = sum_l sum_k binom(j-1, 2k) A_kl q_l^(j-2k-1)
     for j in range(1, terms + 1):
         acc = 0.0
@@ -176,8 +192,8 @@ def _multipole_far(f_flat, t_lo, t_hi, f0, igd, zi, sr, si, cutoff, swc,
             m = j - 2 * k - 1
             if m >= 0:
                 acc = acc + math.comb(j - 1, 2 * k) * (A[k] * qp[m])
-        M.append(acc.sum(-1))  # [Z, nl] complex
-    swc_sum = blk(swc).sum(-1)
+        M.append(msum(acc))  # [Z, nl, C] complex
+    swc_sum = msum(blk(swc))
 
     # far classification per (tile, block)
     gap = torch.clamp(torch.maximum(c_re[:, None, :] - t_hi[None, :, None],
@@ -199,16 +215,17 @@ def _multipole_far(f_flat, t_lo, t_hi, f0, igd, zi, sr, si, cutoff, swc,
     den = torch.complex(f_flat[None, :, None] - c_re[:, None, :],
                         (-c_im)[:, None, :].expand(farf.shape))
     u = torch.where(farf, R[:, None, :] / den, torch.zeros_like(den))
-    mp = torch.zeros(farf.shape[:2], dtype=dtype, device=f_flat.device)
+    mp = torch.zeros(farf.shape[:2] + swc_sum.shape[-1:], dtype=dtype,
+                     device=f_flat.device)
     U = u
     with _cuda.full_f32_matmul():
         for j in range(terms):
-            Mc = M[j][..., None]  # [Z, nl, 1]
-            mp = mp + (U.real @ Mc.real - U.imag @ Mc.imag)[..., 0]
+            Mc = M[j]  # [Z, nl, C]
+            mp = mp + (U.real @ Mc.real - U.imag @ Mc.imag)
             if j < terms - 1:
                 U = U * u
-        mp = mp - (farf.to(dtype) @ swc_sum[..., None])[..., 0]
-    return far, mp
+        mp = mp - farf.to(dtype) @ swc_sum
+    return far, (mp[..., 0] if pw is None else mp)
 
 
 def _pad_lines(nl, tl, *cols):
@@ -227,10 +244,11 @@ def _pad_lines(nl, tl, *cols):
 
 
 def _classify_visits(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, swc,
-                     nf, tf, nl, tl):
+                     nf, tf, nl, tl, pw=None):
     """visit [Z, nf, nl]: the block's cutoff windows meet the tile and it
     is not left to the multipole far field.  Also returns the far field
-    [Z, nf*tf] and the block extrema [Z, 4, nl] the kernel reads."""
+    ([Z, nf*tf], or [Z, nf*tf, C] with per-line weights pw [Z, nl*tl, C])
+    and the block extrema [Z, 4, nl] the kernel reads."""
     Z = f0.shape[0]
     blk = lambda x: x.view(Z, nl, tl)
     win_lo = blk(f0 - cutoff).amin(-1)
@@ -242,7 +260,7 @@ def _classify_visits(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, swc,
     visit = (win_hi[:, None, :] >= t_lo[None, :, None]) & (
         win_lo[:, None, :] <= t_hi[None, :, None])
     far, mp = _multipole_far(f_grid, t_lo, t_hi, f0, inv_gd, z_imag, s_re, s_im,
-                             cutoff, swc, ext[:, 2], ext[:, 3], nl, tl)
+                             cutoff, swc, ext[:, 2], ext[:, 3], nl, tl, pw)
     return visit & ~far, mp, ext.contiguous()
 
 
@@ -266,9 +284,13 @@ def weideman_table(n, dtype, device):
 
 
 def voigt_inputs(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
-                 wcut_im):
+                 wcut_im, polidx=None, table=None):
     """The kernel's inputs (f, lines, ext, blkidx, nvisit, wcoef) and the
-    multipole far field for [Z, L] line columns on an [F] grid."""
+    multipole far field for [Z, L] line columns on an [F] grid.
+
+    With a polarization index per line, polidx [L] in 0..2, and per-level
+    weight rows table [Z, 3, 7], the inputs also carry (polidx padded to
+    whole blocks as int32, table) and the far field has 7 components."""
     tf, tl = TF, TL
     F = f_grid.shape[0]
     L = f0.shape[-1]
@@ -278,11 +300,21 @@ def voigt_inputs(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
         f_grid = torch.cat([f_grid, f_grid[-1:].expand(nf * tf - F)])
     swc = s_re * wcut_re - s_im * wcut_im
     cols = _pad_lines(nl, tl, f0, inv_gd, z_imag, s_re, s_im, cutoff, swc)
-    visit, mp, ext = _classify_visits(f_grid, *cols, nf, tf, nl, tl)
+    pol = pw = None
+    if polidx is not None:
+        if L and not (0 <= int(polidx.min()) and int(polidx.max()) <= 2):
+            raise ValueError("voigt_inputs: polarization indices must be 0, 1 or 2")
+        pol = torch.nn.functional.pad(polidx.to(torch.int32), (0, nl * tl - L))
+        table = table.to(f_grid.dtype).contiguous()
+        pw = table[:, pol.long()]  # [Z, nl*tl, 7]
+    visit, mp, ext = _classify_visits(f_grid, *cols, nf, tf, nl, tl, pw)
     blkidx, nvisit = _visit_lists(visit)
     lines = torch.stack(cols, 1).contiguous()  # [Z, 7, nl*tl]
     wcoef = weideman_table(weideman_order(f_grid.dtype), f_grid.dtype, f_grid.device)
-    return (f_grid.contiguous(), lines, ext, blkidx, nvisit, wcoef), mp
+    args = (f_grid.contiguous(), lines, ext, blkidx, nvisit, wcoef)
+    if pol is not None:
+        args += (pol.contiguous(), table)
+    return args, mp
 
 
 def voigt_sum(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im,
@@ -302,9 +334,52 @@ def voigt_sum(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im,
     return out[0] if one else out
 
 
+def voigt_sum_pol(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
+                  wcut_im, polidx, table):
+    """The polarized contraction: out[c] = sum_l tab[pol_l, c]
+    Re s_l (w(z_l(f)) - wcut_l) inside the window, c < 7.
+
+    Arguments as voigt_sum, plus polidx [L] (0, 1, 2 = pi, sigma-,
+    sigma+) and table [3, 7] (or [Z, 3, 7] with [Z, L] line columns).
+    Returns [7, F] or [Z, 7, F].
+    """
+    one = f0.dim() == 1
+    cols = [c[None] if one else c for c in
+            (f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im)]
+    args, mp = voigt_inputs(f_grid, *cols, polidx=polidx,
+                            table=table[None] if one else table)
+    out = (voigt_kernel_pol(*args) + mp.transpose(1, 2))[..., : f_grid.shape[0]]
+    return out[0] if one else out
+
+
 # ---------------------------------------------------------------------------
 # the kernel and its plain version
 # ---------------------------------------------------------------------------
+
+
+def _check_inputs(name, f, lines, ext, blkidx, nvisit, wcoef, smem_extra=0):
+    """Raise unless the kernel inputs are consistent CUDA tensors; returns
+    (Z, nf, nl, tl, tf, n)."""
+    dev, dt = f.device, f.dtype
+    Z, nc, Lp = lines.shape
+    nl = ext.shape[-1]
+    nf = nvisit.shape[-1]
+    tf = f.shape[0] // nf
+    tl = Lp // nl
+    n = wcoef.shape[0] - 1
+    if dev.type != "cuda" or dt not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: unsupported {dt} on {dev}")
+    if nc != 7 or tl * nl != Lp or tf * nf != f.shape[0] or not 0 < tf <= 1024:
+        raise ValueError(f"{name}: inconsistent tile or block shapes")
+    if (7 * tl + n + 1) * f.element_size() + smem_extra * tl > 48 * 1024:
+        raise ValueError(f"{name}: line block tl={tl} exceeds shared memory")
+    _cuda.check("f", f, dev, dt)
+    _cuda.check("lines", lines, dev, dt, (Z, 7, Lp))
+    _cuda.check("ext", ext, dev, dt, (Z, 4, nl))
+    _cuda.check("blkidx", blkidx, dev, torch.int32, (Z, nf, nl))
+    _cuda.check("nvisit", nvisit, dev, torch.int32, (Z, nf))
+    _cuda.check("wcoef", wcoef, dev, dt)
+    return Z, nf, nl, tl, tf, n
 
 
 def voigt_kernel(f, lines, ext, blkidx, nvisit, wcoef):
@@ -317,71 +392,94 @@ def voigt_kernel(f, lines, ext, blkidx, nvisit, wcoef):
     """
     if f.device.type == "cpu":
         return voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef)
-    dev, dt = f.device, f.dtype
-    Z, nc, Lp = lines.shape
-    nl = ext.shape[-1]
-    nf = nvisit.shape[-1]
-    tf = f.shape[0] // nf
-    tl = Lp // nl
-    n = wcoef.shape[0] - 1
-    if dev.type != "cuda" or dt not in (torch.float32, torch.float64):
-        raise ValueError(f"voigt_kernel: unsupported {dt} on {dev}")
-    if nc != 7 or tl * nl != Lp or tf * nf != f.shape[0] or not 0 < tf <= 1024:
-        raise ValueError("voigt_kernel: inconsistent tile or block shapes")
-    if (7 * tl + n + 1) * f.element_size() > 48 * 1024:
-        raise ValueError(f"voigt_kernel: line block tl={tl} exceeds shared memory")
-    _cuda.check("f", f, dev, dt)
-    _cuda.check("lines", lines, dev, dt, (Z, 7, Lp))
-    _cuda.check("ext", ext, dev, dt, (Z, 4, nl))
-    _cuda.check("blkidx", blkidx, dev, torch.int32, (Z, nf, nl))
-    _cuda.check("nvisit", nvisit, dev, torch.int32, (Z, nf))
-    _cuda.check("wcoef", wcoef, dev, dt)
-    out = torch.empty((Z, nf * tf), dtype=dt, device=dev)
+    Z, nf, nl, tl, tf, n = _check_inputs("voigt_kernel", f, lines, ext, blkidx,
+                                         nvisit, wcoef)
+    out = torch.empty((Z, nf * tf), dtype=f.dtype, device=f.device)
     if Z and nf:
         _cuda.launch(
-            "voigt_sum", dt, _cuda.ptr(f), _cuda.ptr(lines), _cuda.ptr(ext),
+            "voigt_sum", f.dtype, _cuda.ptr(f), _cuda.ptr(lines), _cuda.ptr(ext),
             _cuda.ptr(blkidx), _cuda.ptr(nvisit), _cuda.ptr(wcoef),
             _cuda.ptr(out), Z, nf, nl, tl, tf, n,
         )
     return out
 
 
-def _level_pairs(f, lines, ext, blkidx, nvisit, z, S):
-    """Dense [nf, S, tl, tf] view of level z's first S visit slots:
-    (tier [nf, S] with 4 = slot not visited, line columns [7, nf, S, tl, 1],
-    the frequency offsets df)."""
+def voigt_kernel_pol(f, lines, ext, blkidx, nvisit, wcoef, polidx, table):
+    """[Z, 7, nf*tf] polarized contraction: voigt_kernel's inputs plus the
+    per-line polarization index polidx [nl*tl] int32 and the per-level
+    weight rows table [Z, 3, 7].  On a CUDA tensor this launches the
+    polarized instance of csrc/voigt_sum.cu; on a CPU tensor it runs the
+    plain version."""
+    if f.device.type == "cpu":
+        return voigt_kernel_pol_plain(f, lines, ext, blkidx, nvisit, wcoef,
+                                      polidx, table)
+    Z, nf, nl, tl, tf, n = _check_inputs("voigt_kernel_pol", f, lines, ext,
+                                         blkidx, nvisit, wcoef, smem_extra=4)
+    _cuda.check("polidx", polidx, f.device, torch.int32, (nl * tl,))
+    _cuda.check("table", table, f.device, f.dtype, (Z, 3, 7))
+    out = torch.empty((Z, 7, nf * tf), dtype=f.dtype, device=f.device)
+    if Z and nf:
+        _cuda.launch(
+            "voigt_sum_pol", f.dtype, _cuda.ptr(f), _cuda.ptr(lines),
+            _cuda.ptr(ext), _cuda.ptr(blkidx), _cuda.ptr(nvisit),
+            _cuda.ptr(wcoef), _cuda.ptr(polidx), _cuda.ptr(table),
+            _cuda.ptr(out), Z, nf, nl, tl, tf, n,
+        )
+    return out
+
+
+_PLAIN_CHUNK = 1 << 24  # (slot, line, frequency) elements per dense chunk
+
+
+def _pair_chunks(f, lines, ext, blkidx, nvisit):
+    """Dense views of the visited (line, frequency) pairs, one level and a
+    run of tiles at a time: yields (z, tile slice, tier [nt, S] with 4 =
+    slot not visited, block indices jb [nt, S], line columns
+    [7, nt, S, tl, 1], frequency offsets df [nt, S, tl, tf])."""
+    Z = lines.shape[0]
     nl = ext.shape[-1]
     nf = nvisit.shape[-1]
     tl = lines.shape[-1] // nl
     tiles = f.view(nf, -1)
-    t_lo, t_hi = tiles[:, 0:1], tiles[:, -1:]
+    S = int(nvisit.max()) if nvisit.numel() else 0
+    if not S:
+        return
+    nt = max(1, _PLAIN_CHUNK // (S * tl * tiles.shape[1]))
     mid_r2 = _tier_params(f.dtype)[0]
-    jb = blkidx[z, :, :S].long()  # [nf, S]
-    e = ext[z][:, jb]  # [4, nf, S]
-    gap = torch.clamp(torch.maximum(e[0] - t_hi, t_lo - e[1]), min=0.0)
-    gmin = e[2] * gap
-    bound2 = gmin * gmin + e[3] * e[3]
-    tier = torch.where(bound2 > 2.0 * _DEEP_R2, 0,
-                       torch.where(bound2 > 2.0 * _ASYM_R2, 1,
-                                   torch.where(bound2 > 2.0 * mid_r2, 2, 3)))
     slot = torch.arange(S, device=f.device)
-    tier = torch.where(slot < nvisit[z, :, None], tier, 4)
-    blk = lines[z].view(7, nl, tl)[:, jb][..., None]  # [7, nf, S, tl, 1]
-    df = tiles[:, None, None, :] - blk[0]
-    return tier, blk, df
+    for z in range(Z):
+        for t0 in range(0, nf, nt):
+            ts = slice(t0, min(t0 + nt, nf))
+            tz = tiles[ts]
+            t_lo, t_hi = tz[:, 0:1], tz[:, -1:]
+            jb = blkidx[z, ts, :S].long()  # [nt, S]
+            e = ext[z][:, jb]  # [4, nt, S]
+            gap = torch.clamp(torch.maximum(e[0] - t_hi, t_lo - e[1]), min=0.0)
+            gmin = e[2] * gap
+            bound2 = gmin * gmin + e[3] * e[3]
+            tier = torch.where(bound2 > 2.0 * _DEEP_R2, 0,
+                               torch.where(bound2 > 2.0 * _ASYM_R2, 1,
+                                           torch.where(bound2 > 2.0 * mid_r2, 2, 3)))
+            tier = torch.where(slot < nvisit[z, ts, None], tier, 4)
+            blk = lines[z].view(7, nl, tl)[:, jb][..., None]  # [7, nt, S, tl, 1]
+            df = tz[:, None, None, :] - blk[0]
+            yield z, ts, tier, jb, blk, df
 
 
-def voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef):
-    """The plain PyTorch version of voigt_kernel: the same visit lists and
-    tier rule, each tier evaluated densely and selected per block."""
+def _plain(f, lines, ext, blkidx, nvisit, wcoef, polidx=None, table=None):
+    """Both kernels' plain version: the same visit lists and tier rule,
+    each tier evaluated densely and selected per block; with polidx and
+    table the terms are summed per polarization and weighted by the
+    level's table rows."""
     Z = lines.shape[0]
+    nl = ext.shape[-1]
     nf = nvisit.shape[-1]
+    tf = f.shape[0] // nf
     _, mid_terms, asym_terms = _tier_params(f.dtype)
     Lw, a = wcoef[0], wcoef[1:].tolist()
-    out = torch.zeros((Z, nf, f.shape[0] // nf), dtype=f.dtype, device=f.device)
-    S = int(nvisit.max()) if nvisit.numel() else 0
-    for z in range(Z if S else 0):
-        tier, blk, df = _level_pairs(f, lines, ext, blkidx, nvisit, z, S)
+    shape = (Z, nf, tf) if polidx is None else (Z, 7, nf, tf)
+    out = torch.zeros(shape, dtype=f.dtype, device=f.device)
+    for z, ts, tier, jb, blk, df in _pair_chunks(f, lines, ext, blkidx, nvisit):
         _, igd, zi, sr, si, cut, swc = blk
         zr = igd * df
         zim = zi.expand_as(zr)
@@ -396,21 +494,35 @@ def voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef):
         )
         vals = (sr * wr - si * wi) - swc
         keep = (t < 4) & (df.abs() <= cut)
-        out[z] = torch.where(keep, vals, torch.zeros_like(vals)).sum((1, 2))
-    return out.view(Z, -1)
+        vals = torch.where(keep, vals, torch.zeros_like(vals))
+        if polidx is None:
+            out[z, ts] = vals.sum((1, 2))
+            continue
+        pol = polidx.view(nl, -1)[jb][..., None]  # [nt, S, tl, 1]
+        sums = torch.stack([torch.where(pol == p, vals, torch.zeros_like(vals)).sum((1, 2))
+                            for p in range(3)])  # [3, nt, tf]
+        out[z, :, ts] = (table[z][:, :, None, None] * sums[:, None]).sum(0)
+    return out.view(Z, -1) if polidx is None else out.view(Z, 7, -1)
+
+
+def voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef):
+    """The plain PyTorch version of voigt_kernel."""
+    return _plain(f, lines, ext, blkidx, nvisit, wcoef)
+
+
+def voigt_kernel_pol_plain(f, lines, ext, blkidx, nvisit, wcoef, polidx, table):
+    """The plain PyTorch version of voigt_kernel_pol."""
+    return _plain(f, lines, ext, blkidx, nvisit, wcoef, polidx, table)
 
 
 def pair_counts(f, lines, ext, blkidx, nvisit):
     """(line, frequency) pairs the kernel evaluates, per tier of
     pair_flops: {"visited": {...}, "in_window": {...}}; in-window pairs
     lie inside their line's cutoff window."""
-    Z = lines.shape[0]
-    S = int(nvisit.max()) if nvisit.numel() else 0
     names = ("deep", "asym", "mid", "weideman_series", "weideman")
     visited = dict.fromkeys(names, 0)
     inwin = dict.fromkeys(names, 0)
-    for z in range(Z if S else 0):
-        tier, blk, df = _level_pairs(f, lines, ext, blkidx, nvisit, z, S)
+    for _, _, tier, _, blk, df in _pair_chunks(f, lines, ext, blkidx, nvisit):
         zr = blk[1] * df
         big = zr * zr + blk[2] * blk[2] > _ASYM_R2
         t = tier[..., None, None].expand_as(df)

@@ -1,10 +1,10 @@
-"""The all-sky benchmark scene, built without JAX.
+"""The benchmark scenes, built without JAX.
 
 synth_par_rows and build_scene are copies of bench.py's (without its
 real-catalog branch): 2048 HITRAN-shaped H2O + O2 lines read through the
 .par reader, 4096 frequencies from 160 to 260 GHz, a 60-level US-76
 atmosphere, one Henyey-Greenstein cloud between 4 and 9 km, and a 288 K
-surface.
+surface.  build_zeeman_inputs is bench.py's Zeeman stage on that scene.
 """
 
 import numpy as np
@@ -13,9 +13,10 @@ import torch
 from ._cuda import resolve
 from .atm.standard import standard_atmosphere
 from .fwd_allsky import AllskyScene
-from .io.hitran import read_par
+from .io.hitran import read_par, zeeman_catalog_from_par
 from .lbl.catalog import build_catalog
 from .lbl.partfun import rigid_rotor_table
+from .lbl.zeeman import pad_zeeman_catalog, tune_zeeman_profile
 from .scattering import HenyeyGreenstein
 
 
@@ -73,3 +74,24 @@ def build_scene(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=None):
     )
     f_grid = torch.as_tensor(np.linspace(160e9, 260e9, n_freq), dtype=dt, device=dev)
     return scene, f_grid
+
+
+def build_zeeman_inputs(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=None):
+    """The Zeeman stage's inputs on the benchmark scene (bench.py's Zeeman
+    stage): the Zeeman catalog of synth_par_rows with g factors from the
+    quanta and a 25 GHz cutoff, its padded form and the profile knobs, the
+    atmosphere at its levels top first, a [0, 3e-5, 3e-5] T field and a
+    nadir line of sight.  Returns a dict: f_grid, zcat (ZeemanCatalog),
+    pzcat (its PaddedZeemanCatalog), pf, T, P, vmr, mag, los_za_deg and
+    tune (tune_zeeman_profile's knobs)."""
+    dev, dt = resolve(device, dtype)
+    scene, f_grid = build_scene(n_lev, n_freq, n_lines, device=dev, dtype=dt)
+    zcat = zeeman_catalog_from_par(synth_par_rows(n_lines), ["H2O", "O2"],
+                                   cutoff=25e9, device=dev, dtype=dt)
+    pzcat = pad_zeeman_catalog(zcat)
+    pts = scene.atm.at(scene.atm.z.flip(0))
+    return dict(
+        f_grid=f_grid, zcat=zcat, pzcat=pzcat, pf=scene.pf, T=pts.t, P=pts.p,
+        vmr=pts.vmr, mag=torch.tensor([0.0, 3e-5, 3e-5], dtype=dt, device=dev),
+        los_za_deg=180.0, tune=tune_zeeman_profile(f_grid, pzcat),
+    )

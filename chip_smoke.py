@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 1. prints the card, its power limit, the PyTorch build and its TF32
-   settings, and builds the CUDA kernels from arts_tpu_torch/csrc;
+   settings, and builds the CUDA kernels from arts_tpu_torch/csrc (one
+   nvcc per source, all started together), with each kernel's registers
+   and spills from ptxas;
 2. holds the Voigt kernel against its plain PyTorch version on the
    benchmark scene (top, middle and bottom level) and on a
    Doppler-dominated case that reaches the mid and Weideman tiers;
@@ -14,9 +16,26 @@
    simulate_allsky, with every launch counter set to 0 just before and
    read just after, and guards its fluxes and radiances against the
    float64 plain route on the same inputs, on every 16th frequency;
-5. prints each kernel's launches, time, plain-version time, largest
-   difference and bound as one JSON line, then the card line, then
-   {"ok": true, "device": {...}} as the last line.
+5. holds the polarized Voigt kernel against its plain version on the
+   benchmark's Zeeman inputs (2048 .par lines -> 62,460 pseudo-lines,
+   4096 frequencies) at the top, a middle and the bottom level with an
+   oblique field, in float64 and float32, then drives its path,
+   zeeman_propmat(backend="pallas") over all 60 levels in float32, with
+   the counters set to 0 just before and read just after;
+6. holds the zeeman_mp kernel against its plain version at the full
+   [60 levels, 2048 poles, 4096 frequencies] shape, float64 and float32;
+7. runs the Zeeman stage as bench.py defines it: zeeman_propmat_profile
+   in float32 at the full shape, the median of 5 runs after a warm-up
+   (counters set to 0 just before, read just after), zeeman points/s,
+   and the guard against the dense zeeman_propmat route at the top and
+   bottom levels (max |diff| / max |ref| <= 1e-4);
+8. runs simulate_clearsky_polarized on the 2_zeeman example's scene
+   (one O2 118.75 GHz line, 401 frequencies, 51 levels to 100 km, an
+   up-looking path in 2 km steps, a constant [0, 3e-5, 3e-5] T field) in
+   float64 on the card and on the CPU: equal to 1e-10 of scale, |V| > 0;
+9. prints each kernel's launches on its path, time, plain-version time,
+   largest difference and bound as one JSON line, then the card line,
+   then {"ok": true, "device": {...}} as the last line.
 
 Every check raises on failure.  Without a CUDA device the script exits
 with status 1 and prints no result.  It imports nothing of JAX.
@@ -145,12 +164,13 @@ def phase_build():
         f"(nvcc {info.get('seconds', 0.0):.1f} s, cached={info.get('cached')}) -> {info['library']}")
     name = None
     for line in info.get("ptxas", "").splitlines():
-        m = re.search(r"(voigt_sum_kernel|stage1_kernel|stage23_kernel)I([fd])(?:Li(\d+)E)?", line)
+        m = re.search(r"(voigt_sum_kernel|stage1_kernel|stage23_kernel|zeeman_mp_kernel)"
+                      r"I([fd])(?:Li(\d+)E)?", line)
         if "Compiling entry function" in line and m:
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}" + (
-                f", n={m.group(3)}>" if m.group(3) else ">")
-        elif "Used" in line and name:
-            log(f"  ptxas {name}: {line.split(':', 1)[1].strip()}")
+                f", {m.group(3)}>" if m.group(3) else ">")
+        elif name and ("Used" in line or "spill" in line):
+            log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
     return _cuda
 
 
@@ -347,8 +367,8 @@ def phase_main_path(scenes, dev, _cuda, reps=5):
         times.append(time.perf_counter() - t0)
     launches = dict(_cuda.LAUNCHES)
     log(f"main path launches over {reps} runs: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+    for name in ("voigt_sum", "disort_stage1", "disort_stage23"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the main path")
 
     F, Z = f.shape[0], scene.atm.z.shape[0]
     require(tuple(out.flux_up.shape) == (F, Z), f"flux_up shape {tuple(out.flux_up.shape)}")
@@ -413,12 +433,263 @@ def phase_main_path(scenes, dev, _cuda, reps=5):
     return launches
 
 
+# the oblique field of tests/test_zeeman.py:123, under which all 7
+# propagation-matrix components are nonzero
+OBLIQUE = ([10e-6, -20e-6, 40e-6], 65.0, 30.0)
+# per (line, frequency) pair the polarized kernel adds two selects and
+# adds over the unpolarized one (three partial sets, csrc/voigt_sum.cu);
+# per frequency its epilogue does 7 x (3 multiplies + 2 adds)
+POL_PAIR_EXTRA, POL_EPILOGUE = 2, 35
+
+
+def phase_zeeman_pol(zin, dev, _cuda, levels=(0, 29, 59)):
+    """The polarized Voigt kernel against its plain version, then its path."""
+    from arts_tpu_torch.lbl.zeeman import voigt_sum_pol_args, zeeman_propmat
+    from arts_tpu_torch.ops import voigt_kernel as V
+
+    sel = list(levels)
+    max_abs = 0.0
+    for dt, rtol, atol in ((torch.float64, 0.0, 1e-12), (torch.float32, 2e-5, 2e-6)):
+        d = zin[dt]
+        mag = torch.tensor(OBLIQUE[0], dtype=dt, device=dev)
+        args, _ = voigt_sum_pol_args(d["f_grid"], d["zcat"], d["pf"], d["T"][sel],
+                                     d["P"][sel], d["vmr"][sel], mag, *OBLIQUE[1:])
+        kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10])
+        got = V.voigt_kernel_pol(*kin)
+        want = V.voigt_kernel_pol_plain(*kin)
+        torch.cuda.synchronize()
+        comp = want.abs().amax((0, 2))
+        require(bool((comp > 0).all()), f"voigt_sum_pol {dt}: a component is zero: {comp}")
+        for i, z in enumerate(sel):
+            err, r = close(got[i], want[i], rtol, atol, f"voigt_sum_pol {dt} level {z}")
+            log(f"voigt_sum_pol {str(dt)[6:]} level {z:2d}: max|diff| {err:.3e} ({r:.2e} of "
+                f"scale; held at rtol {rtol}, atol {atol} * scale)")
+            if dt == torch.float32:
+                max_abs = max(max_abs, err)
+    L = int(kin[1].shape[-1])
+    log(f"voigt_sum_pol inputs: {sum(int(i.numel()) for i in zin[torch.float32]['zcat'].idx)} "
+        f"pseudo-lines ({L} padded), max visits per tile {int(kin[4].max())}")
+
+    # its path: all 60 levels in float32 under the benchmark's geometry
+    d = zin[torch.float32]
+    kw = dict(device=dev, dtype=torch.float32)
+
+    def path():
+        return zeeman_propmat(d["f_grid"], d["zcat"], d["pf"], d["T"], d["P"], d["vmr"],
+                              d["mag"], d["los_za_deg"], backend="pallas", **kw)
+
+    path()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    pm = path()
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    log(f"zeeman_propmat(backend='pallas') path, float32, {d['T'].shape[0]} levels: {path_ms:.1f} ms, "
+        f"launches {launches}")
+    require(launches["voigt_sum_pol"] > 0, "voigt_sum_pol was not launched on its path")
+    require(tuple(pm.shape) == (d["T"].shape[0], d["f_grid"].shape[0], 7),
+            f"propmat shape {tuple(pm.shape)}")
+    require(bool(torch.isfinite(pm).all()), "non-finite propagation matrices")
+
+    args, _ = voigt_sum_pol_args(d["f_grid"], d["zcat"], d["pf"], d["T"], d["P"], d["vmr"],
+                                 d["mag"], d["los_za_deg"])
+    kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10])
+    ms = cuda_ms(lambda: V.voigt_kernel_pol(*kin), 10)
+    plain_ms = cuda_ms(lambda: V.voigt_kernel_pol_plain(*kin), 1)
+    counts = V.pair_counts(*kin[:5])
+    pf = {k: v + POL_PAIR_EXTRA for k, v in V.pair_flops(torch.float32).items()}
+    Z, F = kin[1].shape[0], kin[0].shape[0]
+    flops = sum(counts["in_window"][k] * pf[k] for k in pf) + Z * F * POL_EPILOGUE
+    b_ms, b_by = bound(flops, nbytes(*kin) + Z * 7 * F * 4)
+    log(f"voigt_sum_pol float32, {Z} levels: {ms:.3f} ms (plain {plain_ms:.1f} ms); "
+        f"visited pairs {counts['visited']}; in-window pairs {counts['in_window']}; "
+        f"{flops / 1e9:.2f} GFLOP in window -> bound {b_ms:.4f} ms ({b_by})")
+    return dict(
+        name="voigt_sum_pol", route="cuda", source="arts_tpu_torch/csrc/voigt_sum.cu",
+        replaces="arts_tpu/ops/voigt_kernel.py:975", launches=launches["voigt_sum_pol"],
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+    )
+
+
+def phase_zeeman_mp(zin, dev):
+    """The zeeman_mp kernel against its plain version at the full shape."""
+    from arts_tpu_torch.lbl.zeeman import zeeman_mp_args
+    from arts_tpu_torch.ops import zeeman_mp_kernel as MP
+
+    recs = {}
+    max_abs = 0.0
+    for dt, rtol, atol in ((torch.float64, 0.0, 1e-12), (torch.float32, 2e-5, 2e-6)):
+        d = zin[dt]
+        poles, _, _ = zeeman_mp_args(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"], d["vmr"],
+                                     d["mag"], d["los_za_deg"], mp_kappa=d["tune"]["mp_kappa"])
+        f, rec = poles[0], MP.pole_records(*poles[1:])
+        recs[dt] = (f, rec)
+        got = MP.zeeman_mp_kernel(f, rec)
+        want = MP.zeeman_mp_plain(f, rec)
+        torch.cuda.synchronize()
+        err, r = close(got, want, rtol, atol, f"zeeman_mp {dt}")
+        log(f"zeeman_mp {str(dt)[6:]} [{rec.shape[0]} levels, {rec.shape[1]} poles, "
+            f"{f.shape[0]} freqs, P={MP._terms(rec)}]: max|diff| {err:.3e} ({r:.2e} of scale; "
+            f"held at rtol {rtol}, atol {atol} * scale)")
+        if dt == torch.float32:
+            max_abs = err
+    f, rec = recs[torch.float32]
+    ms = cuda_ms(lambda: MP.zeeman_mp_kernel(f, rec), 20)
+    plain_ms = cuda_ms(lambda: MP.zeeman_mp_plain(f, rec), 1)
+    counts = MP.pair_counts(f, rec)
+    pf = MP.pair_flops(MP._terms(rec))
+    flops = sum(counts[k] * pf[k] for k in pf)
+    b_ms, b_by = bound(flops, nbytes(f, rec) + rec.shape[0] * 7 * f.shape[0] * 4)
+    log(f"zeeman_mp float32: {ms:.3f} ms (plain {plain_ms:.1f} ms); pairs {counts}; "
+        f"{flops / 1e9:.2f} GFLOP -> bound {b_ms:.4f} ms ({b_by})")
+    return dict(
+        name="zeeman_mp", route="cuda", source="arts_tpu_torch/csrc/zeeman_mp.cu",
+        replaces="arts_tpu/ops/zeeman_mp_kernel.py:256", max_abs_err=max_abs, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def phase_zeeman_stage(zin, dev, _cuda, reps=5):
+    """bench.py's Zeeman stage: zeeman_propmat_profile timed, guarded
+    against the dense route at the top and bottom levels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from arts_tpu_torch.lbl.zeeman import zeeman_propmat, zeeman_propmat_profile
+
+    d = zin[torch.float32]
+    kw = dict(device=dev, dtype=torch.float32)
+    F = d["f_grid"].shape[0]
+
+    def stage():
+        return zeeman_propmat_profile(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"],
+                                      d["vmr"], d["mag"], d["los_za_deg"], **d["tune"], **kw)
+
+    stage()  # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times, outs = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = stage()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(out)
+    launches = dict(_cuda.LAUNCHES)
+    log(f"Zeeman stage launches over {reps} runs: {launches}")
+    require(all(torch.equal(o, outs[0]) for o in outs), "repeated Zeeman stage runs differ")
+    log(f"Zeeman stage: the {reps} float32 runs are bit-identical")
+    del outs
+    require(launches["zeeman_mp"] > 0, "zeeman_mp was not launched on the Zeeman stage")
+    require(tuple(out.shape) == (d["T"].shape[0], F, 7), f"profile shape {tuple(out.shape)}")
+    require(bool(torch.isfinite(out).all()), "non-finite Zeeman stage output")
+    med = float(np.median(times))
+    log(f"zeeman points/s = {F / med:.1f} (float32, {d['T'].shape[0]} levels x {F} freqs x "
+        f"{d['zcat'].cat.n_lines} lines; median of {reps} runs, {med * 1e3:.2f} ms; runs "
+        f"{[round(t * 1e3, 3) for t in times]} ms) on {card_line()}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stage()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages() if e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profiled Zeeman stage run: wall {wall_ms:.2f} ms (profiler on), device busy "
+        f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} device ops")
+    for ms, count, key in rows[:10]:
+        log(f"  {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+
+    # the stage's parts, each ending in a synchronize: pole moments (tensor
+    # code), the zeeman_mp kernel, the near corrections (tensor code)
+    from arts_tpu_torch.lbl.zeeman import zeeman_mp_args
+    from arts_tpu_torch.ops.voigt_kernel import weideman_order
+    from arts_tpu_torch.ops.zeeman_mp_kernel import near_correction, zeeman_mp_eval
+
+    parts = {"moments": [], "zeeman_mp": [], "near_correction": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        poles, near, _ = zeeman_mp_args(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"],
+                                        d["vmr"], d["mag"], d["los_za_deg"],
+                                        mp_kappa=d["tune"]["mp_kappa"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        field = zeeman_mp_eval(*poles)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for args in near:
+            field = near_correction(poles[0], field, *args, noff=d["tune"]["noff"],
+                                    wofz_n=weideman_order(torch.float32))
+        torch.cuda.synchronize()
+        for k, t in zip(parts, (t1 - t0, t2 - t1, time.perf_counter() - t2)):
+            parts[k].append(t * 1e3)
+    log("Zeeman stage parts (median ms of " + str(reps) + "): " + ", ".join(
+        f"{k} {np.median(v):.2f} {[round(t, 3) for t in v]}" for k, v in parts.items()))
+
+    g = 0.0
+    for z in (0, d["T"].shape[0] - 1):
+        ref = zeeman_propmat(d["f_grid"], d["zcat"], d["pf"], d["T"][z], d["P"][z], d["vmr"][z],
+                             d["mag"], d["los_za_deg"], **kw)
+        g = max(g, rel(out[z], ref))
+    log(f"zeeman profile vs dense route (top and bottom levels): {g:.3e} of scale (limit 1e-4)")
+    require(g <= 1e-4, f"Zeeman stage guard {g:.3e} > 1e-4")
+    return launches
+
+
+def phase_clearsky_polarized(dev):
+    """simulate_clearsky_polarized on the 2_zeeman scene, card against CPU."""
+    from arts_tpu_torch import ZeemanScene, simulate_clearsky_polarized
+    from arts_tpu_torch.atm import Atmosphere1D, hydrostatic_pressure
+    from arts_tpu_torch.lbl.catalog import build_catalog
+    from arts_tpu_torch.lbl.partfun import rigid_rotor_table
+    from arts_tpu_torch.lbl.tmodel import Law
+    from arts_tpu_torch.lbl.zeeman import expand_zeeman
+    from arts_tpu_torch.path import geometric_path_1d
+
+    z = np.linspace(0.0, 100e3, 51)
+    t = 288.0 - 6.5e-3 * np.minimum(z, 12e3) + 2e-3 * np.maximum(z - 50e3, 0)
+    line = [dict(f0=118.7503e9, a=5e-9, e0=0.0, gu=5.0, gl=3.0, iso_mass=32.0,
+                 iso_ratio=0.995, spec_idx=0, iso_idx=0, band_idx=0, t0=296.0,
+                 cutoff=np.inf, ls={"bath": {"G0": (Law.T1, [22000.0, 0.8])}})]
+    path = geometric_path_1d(0.0, 0.0, 0.0, 100e3, 2000.0)
+    f = 118.7503e9 + np.linspace(-5e6, 5e6, 401)
+    out = {}
+    for d in ("cpu", dev):
+        T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64, device=d)
+        cat = build_catalog(line, device=d, dtype=torch.float64)
+        scene = ZeemanScene(
+            atm=Atmosphere1D(z=T(z), t=T(t), p=hydrostatic_pressure(T(z), T(t), 101325.0),
+                             vmr=T(np.full((1, 51), 0.2095)),
+                             mag=T(np.repeat([[0.0], [3e-5], [3e-5]], 51, 1))),
+            zcat=expand_zeeman(cat, ju=[1.0], jl=[1.0], gu_z=[-2.8], gl_z=[-2.77]),
+            pf=rigid_rotor_table(1, 150.0, 1.0, device=d, dtype=torch.float64))
+        t0 = time.perf_counter()
+        out[d] = simulate_clearsky_polarized(scene, f, path.alt, path.za, path.dr,
+                                             device=d, dtype=torch.float64)
+        torch.cuda.synchronize()
+        log(f"simulate_clearsky_polarized float64 on {d}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    got, want = out[dev].cpu(), out["cpu"]
+    require(tuple(got.shape) == (401, 4), f"Stokes shape {tuple(got.shape)}")
+    r, rv = rel(got, want), rel(got[:, 3], want[:, 3])
+    vmax = float(got[:, 3].abs().max())
+    log(f"simulate_clearsky_polarized card vs CPU: {r:.3e} of scale, V {rv:.3e} of its scale "
+        f"(limit 1e-10); max |V|/I {vmax / float(got[:, 0].max()):.3e}")
+    require(r <= 1e-10 and rv <= 1e-10, f"card vs CPU {r:.3e}, V {rv:.3e} > 1e-10")
+    require(vmax > 0, "no circular polarization")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import arts_tpu_torch  # noqa: F401  (fails alone, outside the repository)
     from arts_tpu_torch.scene import build_scene
+
+    from arts_tpu_torch.scene import build_zeeman_inputs
 
     t_start = time.perf_counter()
     _cuda = phase_build()
@@ -428,6 +699,15 @@ def main():
     launches = phase_main_path(scenes, dev, _cuda)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    del scenes
+    t0 = time.perf_counter()
+    zin = {dt: build_zeeman_inputs(device=dev, dtype=dt) for dt in (torch.float64, torch.float32)}
+    log(f"Zeeman inputs built in {time.perf_counter() - t0:.1f} s")
+    kernels.append(phase_zeeman_pol(zin, dev, _cuda))
+    mp = phase_zeeman_mp(zin, dev)
+    mp["launches"] = phase_zeeman_stage(zin, dev, _cuda)["zeeman_mp"]
+    kernels.append(mp)
+    phase_clearsky_polarized(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -59,3 +59,43 @@ def test_disort_kernels_match_plain(dev, nquad):
     for key in ("flux_up", "u0"):
         a, b = getattr(got, key), getattr(want, key)
         assert bool(((a - b).abs() <= 2e-5 * (b.abs().max() + b.abs())).all()), key
+
+
+@pytest.mark.parametrize("dtype, rtol, atol", [(torch.float64, 0.0, 1e-12),
+                                               (torch.float32, 2e-5, 2e-6)])
+def test_voigt_pol_kernel_matches_plain(dev, dtype, rtol, atol):
+    """The polarized Voigt kernel on a 256-line bench-shaped Zeeman
+    catalog (~7800 pseudo-lines) at 4 levels and an oblique field: f64 at
+    1e-12 * scale, f32 at the JAX package's Pallas-vs-XLA bound
+    (tests/test_zeeman.py:146)."""
+    from arts_tpu_torch.lbl.zeeman import voigt_sum_pol_args
+    from arts_tpu_torch.ops import voigt_kernel as V
+    from arts_tpu_torch.scene import build_zeeman_inputs
+
+    d = build_zeeman_inputs(n_lev=4, n_freq=1024, n_lines=256, device=dev, dtype=dtype)
+    mag = torch.tensor([10e-6, -20e-6, 40e-6], dtype=dtype, device=dev)
+    args, _ = voigt_sum_pol_args(d["f_grid"], d["zcat"], d["pf"], d["T"], d["P"], d["vmr"],
+                                 mag, 65.0, 30.0)
+    kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10])
+    got = V.voigt_kernel_pol(*kin).double()
+    want = V.voigt_kernel_pol_plain(*kin).double()
+    scale = want.abs().max()
+    assert bool(((got - want).abs() <= atol * scale + rtol * want.abs()).all())
+
+
+@pytest.mark.parametrize("dtype, atol", [(torch.float64, 1e-12), (torch.float32, 2e-6)])
+def test_zeeman_mp_kernel_matches_plain(dev, dtype, atol):
+    """The zeeman_mp kernel on the parent poles of a 256-line bench-shaped
+    catalog at 6 levels: f64 at 1e-12 * scale, f32 at 2e-6 * scale (the
+    same full-precision arithmetic summed in another order)."""
+    from arts_tpu_torch.lbl.zeeman import zeeman_mp_args
+    from arts_tpu_torch.ops import zeeman_mp_kernel as MP
+    from arts_tpu_torch.scene import build_zeeman_inputs
+
+    d = build_zeeman_inputs(n_lev=6, n_freq=1024, n_lines=256, device=dev, dtype=dtype)
+    poles, _, _ = zeeman_mp_args(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"], d["vmr"],
+                                 d["mag"], d["los_za_deg"], mp_kappa=d["tune"]["mp_kappa"])
+    f, rec = poles[0], MP.pole_records(*poles[1:])
+    got = MP.zeeman_mp_kernel(f, rec).double()
+    want = MP.zeeman_mp_plain(f, rec).double()
+    assert bool(((got - want).abs() <= atol * want.abs().max()).all())

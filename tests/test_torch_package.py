@@ -35,8 +35,11 @@ def test_no_jax_or_arts_tpu_import(path):
 @pytest.fixture(scope="module")
 def cpu_objects():
     """Small CPU inputs for every entry point."""
+    from arts_tpu_torch import ZeemanScene
     from arts_tpu_torch.disort import DisortInput
-    from arts_tpu_torch.scene import build_scene
+    from arts_tpu_torch.io.hitran import zeeman_catalog_from_par
+    from arts_tpu_torch.lbl.zeeman import pad_zeeman_catalog
+    from arts_tpu_torch.scene import build_scene, synth_par_rows
 
     scene, f = build_scene(n_lev=4, n_freq=8, n_lines=4, device="cpu", dtype=torch.float64)
     pts = scene.atm.at(scene.atm.z)
@@ -46,22 +49,45 @@ def cpu_objects():
                       leg=torch.ones(F, L, 16, dtype=torch.float64), f=torch.zeros(F, L, dtype=torch.float64),
                       b_levels=torch.ones(F, L + 1, dtype=torch.float64), fisot=0 * one,
                       albedo=0 * one, b_surf=one, b_top=0 * one)
-    return scene, f, pts, inp
+    zcat = zeeman_catalog_from_par(synth_par_rows(4), ["H2O", "O2"], device="cpu",
+                                   dtype=torch.float64)
+    zscene = ZeemanScene(atm=scene.atm, zcat=zcat, pf=scene.pf)
+    return scene, f, pts, inp, zcat, pad_zeeman_catalog(zcat), zscene
 
 
 def _entry_points():
-    from arts_tpu_torch import gas_absorption_profile, simulate_allsky
+    from arts_tpu_torch import gas_absorption_profile, simulate_allsky, simulate_clearsky_polarized
     from arts_tpu_torch.atm.standard import standard_atmosphere
-    from arts_tpu_torch.convert import scene_from_numpy
+    from arts_tpu_torch.convert import (
+        padded_zeeman_catalog_from_numpy,
+        scene_from_numpy,
+        zeeman_catalog_from_numpy,
+    )
     from arts_tpu_torch.disort import disort
-    from arts_tpu_torch.io.hitran import read_par
+    from arts_tpu_torch.io.hitran import read_par, zeeman_catalog_from_par
     from arts_tpu_torch.lbl.catalog import build_catalog
     from arts_tpu_torch.lbl.partfun import rigid_rotor_table
     from arts_tpu_torch.lbl.voigt import absorption, absorption_kernel
-    from arts_tpu_torch.scene import build_scene, synth_par_rows
+    from arts_tpu_torch.lbl.zeeman import zeeman_propmat, zeeman_propmat_profile
+    from arts_tpu_torch.scene import build_scene, build_zeeman_inputs, synth_par_rows
 
     lines = lambda: read_par(synth_par_rows(4), ["H2O", "O2"])
+    zrows = lambda: synth_par_rows(4)
     return {
+        "zeeman_catalog_from_par": lambda o: zeeman_catalog_from_par(zrows(), ["H2O", "O2"]),
+        "zeeman_catalog_from_numpy": lambda o: zeeman_catalog_from_numpy({}),
+        "padded_zeeman_catalog_from_numpy": lambda o: padded_zeeman_catalog_from_numpy({}),
+        "build_zeeman_inputs": lambda o: build_zeeman_inputs(n_lev=3, n_freq=8, n_lines=4),
+        "zeeman_propmat": lambda o: zeeman_propmat(o[1], o[4], o[0].pf, o[2].t, o[2].p,
+                                                   o[2].vmr, o[2].mag, 180.0),
+        "zeeman_propmat_pallas": lambda o: zeeman_propmat(o[1], o[4], o[0].pf, o[2].t, o[2].p,
+                                                          o[2].vmr, o[2].mag, 180.0,
+                                                          backend="pallas"),
+        "zeeman_propmat_profile": lambda o: zeeman_propmat_profile(
+            o[1], o[5], o[0].pf, o[2].t, o[2].p, o[2].vmr, o[2].mag[0], 180.0),
+        "simulate_clearsky_polarized": lambda o: simulate_clearsky_polarized(
+            o[6], o[1], o[2].t.new_tensor([0.0, 1e3]), o[2].t.new_tensor([0.0, 0.0]),
+            o[2].t.new_tensor([1e3])),
         "standard_atmosphere": lambda o: standard_atmosphere(n_levels=4),
         "build_scene": lambda o: build_scene(n_lev=4, n_freq=8, n_lines=4),
         "build_catalog": lambda o: build_catalog(lines()),
