@@ -1,13 +1,18 @@
 """arts_tpu_torch: the PyTorch/CUDA port of arts_tpu for NVIDIA Hopper.
 
-Two paths so far, with hand-written CUDA kernels for sm_90a, each beside
+Three paths so far, with hand-written CUDA kernels for sm_90a, each beside
 its plain PyTorch version:
   * all-sky: line-by-line gas absorption through the Voigt kernel, then
     the fused DISORT solve (gas_absorption_profile, simulate_allsky);
   * Zeeman: polarized propagation matrices through the polarized Voigt
     kernel (lbl.zeeman.zeeman_propmat, backend="pallas") or the
     parent-pole kernel (lbl.zeeman.zeeman_propmat_profile), and the
-    polarized clear-sky radiance (simulate_clearsky_polarized).
+    polarized clear-sky radiance (simulate_clearsky_polarized);
+  * retrieval: the differentiable all-sky route
+    (simulate_allsky(fast_linalg=False), through the Jacobi eigh kernel),
+    Jacobians by torch.func, and optimal estimation (retrieval.oem) on
+    it, e.g. scene.build_cloud_retrieval; disort.eigen_kernel.fused_eigen
+    gives the DISORT eigen stage on its own.
 Entry points run on the card unless the caller passes device="cpu";
 without a card they raise.  Importing the package touches no device and
 changes no global setting.

@@ -25,7 +25,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD = pathlib.Path(__file__).parent / "_build"
-SOURCES = ("voigt_sum.cu", "disort_fused.cu", "zeeman_mp.cu")
+SOURCES = ("voigt_sum.cu", "disort_fused.cu", "zeeman_mp.cu", "eigh_jacobi.cu")
 # no --use_fast_math: the tolerances need IEEE divides, sqrt and exp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 # launches per kernel, incremented by each wrapper where it launches
 LAUNCHES = {"voigt_sum": 0, "disort_stage1": 0, "disort_stage23": 0,
-            "voigt_sum_pol": 0, "zeeman_mp": 0}
+            "voigt_sum_pol": 0, "zeeman_mp": 0, "eigh_jacobi": 0, "fused_eigen": 0}
 
 # build facts for chip_smoke.py: seconds, library path, ptxas report
 BUILD_INFO = {}
@@ -167,6 +167,10 @@ _SIGNATURES = {
     "voigt_sum_pol": [_P] * 9 + [_I] * 6 + [_P],
     # f, rec, out, Z, F, NP, P, tf, stream
     "zeeman_mp": [_P] * 3 + [_I] * 5 + [_P],
+    # a, w, v, n, B, sweeps, stream
+    "eigh_jacobi": [_P] * 3 + [_I] * 3 + [_P],
+    # pp, pm, om, dtau, qtab, k, ek, gp, gm, n, L, B, sweeps, stream
+    "fused_eigen": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 

@@ -1,11 +1,17 @@
 // Fused DISORT solve for Hopper (sm_90a): two kernels for the three stages
-// of the TPU path.
+// of the TPU path, and the standalone eigen stage.
 //
 // Replaces the Pallas TPU kernels of arts_tpu/disort/fused_kernel.py:
 //   disort_stage1   <- _stage1_kernel (pallas_call at :447), which runs
 //                      eigen_core (arts_tpu/disort/eigen_kernel.py:35) and
 //                      the tournament Jacobi of arts_tpu/ops/eigh_jacobi.py
 //   disort_stage23  <- _stage2_kernel (:489) and _stage3_kernel (:508)
+// and of arts_tpu/disort/eigen_kernel.py:
+//   fused_eigen     <- _kernel (pallas_call at :207, wrapper fused_eigen
+//                      at :252): eigen_core alone, writing k, Ek and G+-.
+// Stage 1 and fused_eigen share the device functions h12 and eigen_core
+// below; the Jacobi sweeps are csrc/jacobi.cuh's, shared with
+// csrc/eigh_jacobi.cu.
 //
 // Layout: every (frequency x Fourier mode) problem is a lane b; arrays are
 // [layer, entry, lane], so the threads of a warp, which hold neighbouring
@@ -39,30 +45,9 @@
 
 #include <cuda_runtime.h>
 
+#include "jacobi.cuh"
+
 namespace {
-
-template <typename T>
-__device__ __forceinline__ T tabs(T a) { return a < T(0) ? -a : a; }
-
-// player at seat k after r rotations of the circle method: the schedule
-// of arts_tpu/ops/eigh_jacobi.py:_tournament for even n
-__host__ __device__ constexpr int seat(int n, int r, int k) {
-  return k == 0 ? 0 : 1 + (((k - 1 - r) % (n - 1)) + (n - 1)) % (n - 1);
-}
-
-// (c, s) of the Jacobi rotation zeroing apq, never dividing by apq
-template <typename T>
-__device__ __forceinline__ void rot_cs(T app, T aqq, T apq, T& c, T& s) {
-  const T d = aqq - app;
-  const T denom = tabs(d) + sqrt(d * d + T(4) * apq * apq);
-  T t = T(0);
-  if (denom > T(0)) {
-    const T sg = d > T(0) ? T(1) : (d < T(0) ? T(-1) : T(0));
-    t = T(2) * apq * sg / denom;
-  }
-  c = T(1) / sqrt(t * t + T(1));
-  s = t * c;
-}
 
 // Gaussian elimination without pivoting, A X = B; X overwrites B
 template <typename T, int N, int K>
@@ -98,37 +83,17 @@ __device__ __forceinline__ void ge_solve(T (&A)[N][N], T (&B)[N][K]) {
 // qtab (arts_tpu_torch/disort/fused_kernel.py:quad_table): 1/mu, 1/E,
 // 1/(mu F), F^2/w, w/F (n each), then F_i F_j and -w_j/(F_i F_j mu_i)
 template <typename T, int N>
-__global__ void __launch_bounds__(128)
-stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
-              const T* __restrict__ om, const T* __restrict__ dtau,
-              const T* __restrict__ tb0, const T* __restrict__ tb1,
-              const T* __restrict__ qtab, T* __restrict__ ek,
-              T* __restrict__ gp, T* __restrict__ gm, T* __restrict__ ut,
-              T* __restrict__ vt, T* __restrict__ ub, T* __restrict__ vb,
-              int L, int B, int sweeps) {
+__device__ __forceinline__ void load_qtab(const T* __restrict__ qtab, T* q) {
   constexpr int NQ = 5 * N + 2 * N * N;
-  __shared__ T q[NQ];
   for (int i = threadIdx.x; i < NQ; i += blockDim.x) q[i] = qtab[i];
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = blockIdx.y;
-  if (b >= B) return;
-  const T* imu = q;
-  const T* ei = q + N;
-  const T* ri = q + 2 * N;
-  const T* dg = q + 3 * N;
-  const T* wF = q + 4 * N;
-  const T* ff = q + 5 * N;
-  const T* sc = q + 5 * N + N * N;
+}
 
-  const long mat0 = static_cast<long>(l) * N * N * B + b;
-  const long vec0 = static_cast<long>(l) * N * B + b;
-  const long one0 = static_cast<long>(l) * B + b;
-  const T c = T(0.5) * om[one0];
-  const T dt = dtau[one0];
-
-  // H1/H2 = F (c (Pp -/+ Pm) - diag(1/w)) F
-  T H1[N][N], H2[N][N];
+// H1/H2 = F (c (Pp -/+ Pm) - diag(1/w)) F for the problem at mat0
+template <typename T, int N>
+__device__ __forceinline__ void h12(const T* __restrict__ pp, const T* __restrict__ pm,
+                                    long mat0, long B, T c, const T* ff, const T* dg,
+                                    T (&H1)[N][N], T (&H2)[N][N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
@@ -141,43 +106,18 @@ stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
       H2[i][j] = ffc * (a + m) - d;
     }
   }
+}
 
-  // thermal particular solution: q1 = AmB^-1 tb1/mu, p+r = 2 AmB^-1 tb0/mu,
-  // p-r = 2 ApB^-1 q1, with ApB/AmB = sc * H1/H2
-  {
-    const T t1 = tb1[one0];
-    const T t0 = tb0[one0];
-    T A[N][N], G[N][2];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) A[i][j] = sc[i * N + j] * H2[i][j];
-      G[i][0] = t1 * imu[i];
-      G[i][1] = t0 * imu[i];
-    }
-    ge_solve<T, N, 2>(A, G);
-    T X[N][1];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) A[i][j] = sc[i * N + j] * H1[i][j];
-      X[i][0] = G[i][0];
-    }
-    ge_solve<T, N, 1>(A, X);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const T ppr = T(2) * G[i][1];
-      const T pmr = T(2) * X[i][0];
-      const T p0 = T(0.5) * (ppr + pmr);
-      const T r0 = T(0.5) * (ppr - pmr);
-      const T q1d = G[i][0] * dt;
-      ut[vec0 + static_cast<long>(i) * B] = p0;
-      vt[vec0 + static_cast<long>(i) * B] = r0;
-      ub[vec0 + static_cast<long>(i) * B] = p0 + q1d;
-      vb[vec0 + static_cast<long>(i) * B] = r0 + q1d;
-    }
-  }
-
+// The eigen stage of one problem: Cholesky of -H1, Hsym = -Lc^T H2 Lc, the
+// tournament Jacobi, k = sqrt(max(lambda, 1e-24)), Ek = exp(-k dtau) and
+// G+-, written at vec0 ([layer, n, lane]) and mat0 ([layer, n*n, lane]).
+// With WRITE_K, k itself is written to kout as well.
+template <typename T, int N, bool WRITE_K>
+__device__ __forceinline__ void eigen_core(const T (&H1)[N][N], const T (&H2)[N][N],
+                                           T dt, const T* ei, const T* ri, const T* wF,
+                                           int sweeps, long vec0, long mat0, long B,
+                                           T* __restrict__ kout, T* __restrict__ ek,
+                                           T* __restrict__ gp, T* __restrict__ gm) {
   // Lc = cholesky(-H1), lower; the clamp keeps omega -> 1 finite
   T Lc[N][N];
 #pragma unroll
@@ -224,57 +164,19 @@ stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
     }
   }
 
-  // tournament cyclic Jacobi: per round, the angles of all disjoint pairs
-  // first, then the row rotations, then the column rotations and V
   T V[N][N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
     for (int j = 0; j < N; ++j) V[i][j] = i == j ? T(1) : T(0);
   }
-#pragma unroll 1
-  for (int sw = 0; sw < sweeps; ++sw) {
-#pragma unroll
-    for (int r = 0; r < N - 1; ++r) {
-      T cs[N / 2], sn[N / 2];
-#pragma unroll
-      for (int k = 0; k < N / 2; ++k) {
-        const int a = seat(N, r, k), e = seat(N, r, N - 1 - k);
-        const int p = a < e ? a : e, qq = a < e ? e : a;
-        rot_cs(M[p][p], M[qq][qq], M[p][qq], cs[k], sn[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < N / 2; ++k) {
-        const int a = seat(N, r, k), e = seat(N, r, N - 1 - k);
-        const int p = a < e ? a : e, qq = a < e ? e : a;
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const T mp = M[p][j], mq = M[qq][j];
-          M[p][j] = cs[k] * mp - sn[k] * mq;
-          M[qq][j] = sn[k] * mp + cs[k] * mq;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < N / 2; ++k) {
-        const int a = seat(N, r, k), e = seat(N, r, N - 1 - k);
-        const int p = a < e ? a : e, qq = a < e ? e : a;
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const T mp = M[i][p], mq = M[i][qq];
-          M[i][p] = cs[k] * mp - sn[k] * mq;
-          M[i][qq] = sn[k] * mp + cs[k] * mq;
-          const T vp = V[i][p], vq = V[i][qq];
-          V[i][p] = cs[k] * vp - sn[k] * vq;
-          V[i][qq] = sn[k] * vp + cs[k] * vq;
-        }
-      }
-    }
-  }
+  jacobi::sweeps<T, N>(M, V, N, sweeps);
 
   T kk[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     kk[j] = sqrt(M[j][j] > T(1e-24) ? M[j][j] : T(1e-24));
+    if (WRITE_K) kout[vec0 + static_cast<long>(j) * B] = kk[j];
     ek[vec0 + static_cast<long>(j) * B] = exp(-kk[j] * dt);
   }
 
@@ -302,6 +204,98 @@ stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
       gm[mat0 + static_cast<long>(i * N + j) * B] = T(0.5) * (V[i][j] - D);
     }
   }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(128)
+stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
+              const T* __restrict__ om, const T* __restrict__ dtau,
+              const T* __restrict__ tb0, const T* __restrict__ tb1,
+              const T* __restrict__ qtab, T* __restrict__ ek,
+              T* __restrict__ gp, T* __restrict__ gm, T* __restrict__ ut,
+              T* __restrict__ vt, T* __restrict__ ub, T* __restrict__ vb,
+              int L, int B, int sweeps) {
+  __shared__ T q[5 * N + 2 * N * N];
+  load_qtab<T, N>(qtab, q);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int l = blockIdx.y;
+  if (b >= B) return;
+  const T* imu = q;
+  const T* ei = q + N;
+  const T* ri = q + 2 * N;
+  const T* dg = q + 3 * N;
+  const T* wF = q + 4 * N;
+  const T* ff = q + 5 * N;
+  const T* sc = q + 5 * N + N * N;
+
+  const long mat0 = static_cast<long>(l) * N * N * B + b;
+  const long vec0 = static_cast<long>(l) * N * B + b;
+  const long one0 = static_cast<long>(l) * B + b;
+  const T dt = dtau[one0];
+  T H1[N][N], H2[N][N];
+  h12<T, N>(pp, pm, mat0, B, T(0.5) * om[one0], ff, dg, H1, H2);
+
+  // thermal particular solution: q1 = AmB^-1 tb1/mu, p+r = 2 AmB^-1 tb0/mu,
+  // p-r = 2 ApB^-1 q1, with ApB/AmB = sc * H1/H2
+  {
+    const T t1 = tb1[one0];
+    const T t0 = tb0[one0];
+    T A[N][N], G[N][2];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) A[i][j] = sc[i * N + j] * H2[i][j];
+      G[i][0] = t1 * imu[i];
+      G[i][1] = t0 * imu[i];
+    }
+    ge_solve<T, N, 2>(A, G);
+    T X[N][1];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) A[i][j] = sc[i * N + j] * H1[i][j];
+      X[i][0] = G[i][0];
+    }
+    ge_solve<T, N, 1>(A, X);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T ppr = T(2) * G[i][1];
+      const T pmr = T(2) * X[i][0];
+      const T p0 = T(0.5) * (ppr + pmr);
+      const T r0 = T(0.5) * (ppr - pmr);
+      const T q1d = G[i][0] * dt;
+      ut[vec0 + static_cast<long>(i) * B] = p0;
+      vt[vec0 + static_cast<long>(i) * B] = r0;
+      ub[vec0 + static_cast<long>(i) * B] = p0 + q1d;
+      vb[vec0 + static_cast<long>(i) * B] = r0 + q1d;
+    }
+  }
+
+  eigen_core<T, N, false>(H1, H2, dt, ei, ri, wF, sweeps, vec0, mat0, B, nullptr,
+                          ek, gp, gm);
+}
+
+// the standalone eigen stage: stage 1 without the particular solution,
+// writing k as well; the same [layer, entry, lane] layout
+template <typename T, int N>
+__global__ void __launch_bounds__(128)
+fused_eigen_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
+                   const T* __restrict__ om, const T* __restrict__ dtau,
+                   const T* __restrict__ qtab, T* __restrict__ k,
+                   T* __restrict__ ek, T* __restrict__ gp, T* __restrict__ gm,
+                   int L, int B, int sweeps) {
+  __shared__ T q[5 * N + 2 * N * N];
+  load_qtab<T, N>(qtab, q);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int l = blockIdx.y;
+  if (b >= B) return;
+  const long mat0 = static_cast<long>(l) * N * N * B + b;
+  const long vec0 = static_cast<long>(l) * N * B + b;
+  const long one0 = static_cast<long>(l) * B + b;
+  T H1[N][N], H2[N][N];
+  h12<T, N>(pp, pm, mat0, B, T(0.5) * om[one0], q + 5 * N, q + 3 * N, H1, H2);
+  eigen_core<T, N, true>(H1, H2, dtau[one0], q + N, q + 2 * N, q + 4 * N, sweeps,
+                         vec0, mat0, B, k, ek, gp, gm);
 }
 
 template <typename T, int N>
@@ -517,8 +511,36 @@ int stage23(const void* gp, const void* gm, const void* ek, const void* rhs,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T, int N>
+int launch_eigen(const void* const* a, void* const* o, int L, int B, int sweeps,
+                 cudaStream_t s) {
+  const dim3 grid((B + 127) / 128, L);
+  fused_eigen_kernel<T, N><<<grid, 128, 0, s>>>(
+      static_cast<const T*>(a[0]), static_cast<const T*>(a[1]),
+      static_cast<const T*>(a[2]), static_cast<const T*>(a[3]),
+      static_cast<const T*>(a[4]), static_cast<T*>(o[0]), static_cast<T*>(o[1]),
+      static_cast<T*>(o[2]), static_cast<T*>(o[3]), L, B, sweeps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int eigen(const void* pp, const void* pm, const void* om, const void* dtau,
+          const void* qtab, void* k, void* ek, void* gp, void* gm, int n, int L,
+          int B, int sweeps, void* stream) {
+  const void* a[] = {pp, pm, om, dtau, qtab};
+  void* o[] = {k, ek, gp, gm};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 8) return launch_eigen<T, 8>(a, o, L, B, sweeps, s);
+  if (n == 4) return launch_eigen<T, 4>(a, o, L, B, sweeps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
+#define EIGEN_ARGS                                                         \
+  const void *pp, const void *pm, const void *om, const void *dtau,        \
+      const void *qtab, void *k, void *ek, void *gp, void *gm, int n,      \
+      int L, int B, int sweeps, void *stream
 #define STAGE1_ARGS                                                        \
   const void *pp, const void *pm, const void *om, const void *dtau,        \
       const void *tb0, const void *tb1, const void *qtab, void *ek,        \
@@ -545,4 +567,12 @@ extern "C" int disort_stage23_f32(STAGE23_ARGS) {
 extern "C" int disort_stage23_f64(STAGE23_ARGS) {
   return stage23<double>(gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, P, y, utop,
                          vtop, ubot, vbot, n, L, B, stream);
+}
+extern "C" int fused_eigen_f32(EIGEN_ARGS) {
+  return eigen<float>(pp, pm, om, dtau, qtab, k, ek, gp, gm, n, L, B, sweeps,
+                      stream);
+}
+extern "C" int fused_eigen_f64(EIGEN_ARGS) {
+  return eigen<double>(pp, pm, om, dtau, qtab, k, ek, gp, gm, n, L, B, sweeps,
+                       stream);
 }

@@ -24,33 +24,11 @@ Beam sources are not ported (mu0 > 0 raises in disort()).
 
 import math
 
-import numpy as np
 import torch
 
 from .. import _cuda
-from ..ops.eigh_jacobi import _default_sweeps, _rot_cs, _tournament
-
-
-def quad_table(mu, w, dtype, device):
-    """Quadrature constants of stage 1, computed in float64 as the JAX
-    kernel computes them on the host: rows 1/mu, 1/E (E = sqrt(w mu)),
-    1/(mu F) (F = sqrt(w/mu)), F^2/w, w/F, then the n x n tables F_i F_j
-    and -w_j/(F_i F_j mu_i).  [5n + 2n^2]."""
-    mu = np.asarray(mu, np.float64)
-    w = np.asarray(w, np.float64)
-    Fq = np.sqrt(w / mu)
-    E = np.sqrt(w * mu)
-    rows = [1.0 / mu, 1.0 / E, 1.0 / (mu * Fq), (1.0 / w) * Fq * Fq, w / Fq,
-            (Fq[:, None] * Fq[None, :]).ravel(),
-            (-w[None, :] / (Fq[:, None] * Fq[None, :] * mu[:, None])).ravel()]
-    return torch.as_tensor(np.concatenate(rows), dtype=dtype, device=device)
-
-
-def _split_qtab(qtab, n):
-    imu, ei, ri, dg, wF = qtab[: 5 * n].view(5, n)
-    ff = qtab[5 * n : 5 * n + n * n].view(n, n)
-    sc = qtab[5 * n + n * n :].view(n, n)
-    return imu, ei, ri, dg, wF, ff, sc
+from ..ops.eigh_jacobi import _default_sweeps
+from .eigen_kernel import eigen_plain, h12_plain, quad_table, split_qtab
 
 
 def _ge_solve(A, B):
@@ -113,85 +91,13 @@ def stage1(pp, pm, om, dtau, tb0, tb1, qtab, sweeps):
 
 def stage1_plain(pp, pm, om, dtau, tb0, tb1, qtab, sweeps):
     """The plain PyTorch version of stage1: the same arithmetic, batched
-    over all (layer, lane) problems as matrices [L, B, n, n]."""
+    over all (layer, lane) problems as matrices [L, B, n, n]; the eigen
+    part is disort/eigen_kernel.py's, shared with fused_eigen."""
     L, nn, B = pp.shape
     n = math.isqrt(nn)
-    imu, ei, ri, dg, wF, ff, sc = _split_qtab(qtab, n)
-    mat = lambda x: x.view(L, n, n, B).permute(0, 3, 1, 2)
-    Pp, Pm = mat(pp), mat(pm)
-    ffc = ff * (0.5 * om)[..., None, None]
-    D = torch.diag(dg)
-    H1 = ffc * (Pp - Pm) - D
-    H2 = ffc * (Pp + Pm) - D
-
-    # Lc = cholesky(-H1), lower; the clamp keeps an (unphysical) omega -> 1
-    # layer finite
-    Lc = torch.zeros_like(H1)
-    for j in range(n):
-        s = -H1[..., j, j]
-        for k in range(j):
-            s = s - Lc[..., j, k] * Lc[..., j, k]
-        d = torch.sqrt(torch.clamp(s, min=1e-30))
-        Lc[..., j, j] = d
-        s = -H1[..., j + 1 :, j]
-        for k in range(j):
-            s = s - Lc[..., j + 1 :, k] * Lc[..., j, k, None]
-        Lc[..., j + 1 :, j] = s * (1.0 / d)[..., None]
-
-    # Hsym = -Lc^T (H2 Lc)
-    Tm = torch.empty_like(H1)
-    for l in range(n):
-        s = H2[..., :, l] * Lc[..., l, l, None]
-        for k in range(l + 1, n):
-            s = s + H2[..., :, k] * Lc[..., k, l, None]
-        Tm[..., :, l] = s
-    M = torch.empty_like(H1)
-    for i in range(n):
-        s = Lc[..., i, i, None] * Tm[..., i, i:]
-        for j in range(i + 1, n):
-            s = s + Lc[..., j, i, None] * Tm[..., j, i:]
-        M[..., i, i:] = -s
-        M[..., i:, i] = -s
-
-    # tournament cyclic Jacobi, accumulating V
-    V = torch.eye(n, dtype=pp.dtype, device=pp.device).expand_as(M).clone()
-    rounds = [(torch.tensor([p for p, _ in r], device=pp.device),
-               torch.tensor([q for _, q in r], device=pp.device))
-              for r in _tournament(n)]
-    for _ in range(sweeps):
-        for p, q in rounds:
-            c, s = _rot_cs(M[..., p, p], M[..., q, q], M[..., p, q])
-            cr, sr = c[..., None], s[..., None]
-            Mp, Mq = M[..., p, :], M[..., q, :]
-            M[..., p, :] = cr * Mp - sr * Mq
-            M[..., q, :] = sr * Mp + cr * Mq
-            cc, scol = c[..., None, :], s[..., None, :]
-            Mp, Mq = M[..., :, p], M[..., :, q]
-            M[..., :, p] = cc * Mp - scol * Mq
-            M[..., :, q] = scol * Mp + cc * Mq
-            Vp, Vq = V[..., :, p], V[..., :, q]
-            V[..., :, p] = cc * Vp - scol * Vq
-            V[..., :, q] = scol * Vp + cc * Vq
-
-    kk = torch.sqrt(torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1), min=1e-24))
-    ek = torch.exp(-kk * dtau[..., None])
-
-    # Y = diag(1/E) Lc V; D = diag(1/(mu F)) H2 diag(w/F) Y / k; G+- = (Y +- D)/2
-    Y = torch.empty_like(H1)
-    for i in range(n):
-        s = Lc[..., i, i, None] * V[..., i, :]
-        for l in range(i):
-            s = s + Lc[..., i, l, None] * V[..., l, :]
-        Y[..., i, :] = ei[i] * s
-    Gp = torch.empty_like(H1)
-    Gm = torch.empty_like(H1)
-    for i in range(n):
-        s = wF[0] * H2[..., i, 0, None] * Y[..., 0, :]
-        for l in range(1, n):
-            s = s + wF[l] * H2[..., i, l, None] * Y[..., l, :]
-        Dv = ri[i] * s / kk
-        Gp[..., i, :] = 0.5 * (Y[..., i, :] + Dv)
-        Gm[..., i, :] = 0.5 * (Y[..., i, :] - Dv)
+    imu, _, _, _, _, _, sc = split_qtab(qtab, n)
+    H1, H2 = h12_plain(pp, pm, om, qtab)
+    _, ek, Gp, Gm = eigen_plain(H1, H2, dtau, qtab, sweeps)
 
     # thermal particular solution: q1 = AmB^-1 tb1/mu, p+r = 2 AmB^-1 tb0/mu,
     # p-r = 2 ApB^-1 q1, with ApB/AmB = sc * H1/H2

@@ -56,21 +56,26 @@ def gas_absorption_profile(scene: AllskyScene, f_grid, plain: bool = False,
 
 
 def simulate_allsky(scene: AllskyScene, f_grid, nquad: int = 16,
-                    nfourier: int | None = None, k_gas=None, plain: bool = False,
+                    nfourier: int | None = None, k_gas=None,
+                    fast_linalg: bool | None = None, plain: bool = False,
                     device=None, dtype=None):
     """DISORT radiance and flux field for the vertical profile of
     scene.atm, thermal emission only, nquad phase moments.
 
     Returns a DisortOutput with a leading frequency axis; levels run from
     the TOA to the surface.  k_gas: optional precomputed [F, Z] gas
-    absorption (TOA-first, from gas_absorption_profile).  plain=True runs
-    the kernels' plain versions on any device."""
+    absorption (TOA-first, from gas_absorption_profile).  fast_linalg:
+    None or True solves by the fused DISORT kernels, False by the
+    differentiable route (disort/solver.py), through which autograd and
+    torch.func Jacobians run.  plain=True runs the kernels' plain versions
+    on any device."""
     dev, dt = resolve(device, dtype)
     scene, f_grid, k_gas = move((scene, f_grid, k_gas), dev, dt)
     if k_gas is None:
         k_gas = gas_absorption_profile(scene, f_grid, plain=plain, device=dev, dtype=dt)
     inp = allsky_input(scene, f_grid, k_gas, nleg=nquad)
-    return disort(inp, nquad=nquad, nfourier=nfourier, plain=plain, device=dev, dtype=dt)
+    return disort(inp, nquad=nquad, nfourier=nfourier, fast_linalg=fast_linalg,
+                  plain=plain, device=dev, dtype=dt)
 
 
 def allsky_input(scene: AllskyScene, f_grid, k_gas, nleg: int) -> DisortInput:
@@ -99,7 +104,8 @@ def allsky_input(scene: AllskyScene, f_grid, k_gas, nleg: int) -> DisortInput:
     legl = lay(torch.movedim(leg_w, -1, 0)) * dz  # [NLeg, F, L]
     leg = torch.movedim(torch.where(ksca_l > 0, legl / torch.clamp(ksca_l, min=1e-300),
                                     0.0), 0, -1)  # [F, L, NLeg]
-    leg[..., 0] = 1.0
+    # g_0 = 1, out of place so that torch.func transforms pass
+    leg = torch.cat([torch.ones_like(leg[..., :1]), leg[..., 1:]], -1)
     return DisortInput(
         tau=tau,
         omega=omega,

@@ -1,22 +1,31 @@
-"""The benchmark scenes, built without JAX.
+"""The benchmark scenes and the cloud-retrieval case, built without JAX.
 
 synth_par_rows and build_scene are copies of bench.py's (without its
 real-catalog branch): 2048 HITRAN-shaped H2O + O2 lines read through the
 .par reader, 4096 frequencies from 160 to 260 GHz, a 60-level US-76
 atmosphere, one Henyey-Greenstein cloud between 4 and 9 km, and a 288 K
 surface.  build_zeeman_inputs is bench.py's Zeeman stage on that scene.
+build_cloud_retrieval is an OEM retrieval of cloud extinction, single
+scattering albedo and surface temperature in a cloudy microwave window.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from ._cuda import resolve
+from ._cuda import move, resolve
+from .atm import Atmosphere1D
+from .atm.field import hydrostatic_pressure
 from .atm.standard import standard_atmosphere
-from .fwd_allsky import AllskyScene
+from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky
 from .io.hitran import read_par, zeeman_catalog_from_par
 from .lbl.catalog import build_catalog
 from .lbl.partfun import rigid_rotor_table
+from .lbl.tmodel import Law
 from .lbl.zeeman import pad_zeeman_catalog, tune_zeeman_profile
+from .retrieval import covariance
+from .retrieval.targets import RetrievalTarget, StateMapping
 from .scattering import HenyeyGreenstein
 
 
@@ -95,3 +104,134 @@ def build_zeeman_inputs(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=
         vmr=pts.vmr, mag=torch.tensor([0.0, 3e-5, 3e-5], dtype=dt, device=dev),
         los_za_deg=180.0, tune=tune_zeeman_profile(f_grid, pzcat),
     )
+
+
+def window_scene(n_lev=51, device=None, dtype=None):
+    """The cloudy microwave-window scene: a 51-level atmosphere to 80 km
+    (lapse rate 6.5 K/km to 12 km, warming by 1 K/km above 20 km, a 1 %
+    absorber decaying with a 2 km scale height, hydrostatic pressure), two
+    H2O-like lines at 183.31 and 230 GHz, a Henyey-Greenstein cloud between
+    4 and 8 km (ext 5e-4 1/m, ssa 0.9, g 0.7) and a 288 K black surface.
+    Built in float64, then cast to `dtype`."""
+    dev, dt = resolve(device, dtype)
+    f64 = dict(dtype=torch.float64, device=dev)
+    z = torch.linspace(0.0, 80e3, n_lev, **f64)
+    t = 288.0 - 6.5e-3 * torch.clamp(z, max=12e3) + 1e-3 * torch.clamp(z - 20e3, min=0.0)
+    vmr0 = 0.01 * torch.exp(-z / 2e3)
+    atm = Atmosphere1D(z=z, t=t, p=hydrostatic_pressure(z, t, 101325.0),
+                       vmr=torch.stack([vmr0, 1.0 - vmr0]))
+    common = dict(iso_mass=18.0, iso_ratio=1.0, spec_idx=0, iso_idx=0, t0=296.0,
+                  cutoff=np.inf)
+    lines = [
+        dict(f0=183.31e9, a=1e-5, e0=2.2e-21, gu=9.0, gl=7.0, band_idx=0,
+             ls={"bath": {"G0": (Law.T1, [2.5e4, 0.7]), "D0": (Law.T0, [10.0])}},
+             **common),
+        dict(f0=230.0e9, a=3e-6, e0=1.0e-21, gu=5.0, gl=3.0, band_idx=1,
+             ls={"bath": {"G0": (Law.T1, [2.0e4, 0.75])}}, **common),
+    ]
+    in_cloud = (z > 4e3) & (z < 8e3)
+    cloud = HenyeyGreenstein(ext=torch.where(in_cloud, torch.full_like(z, 5e-4), 0.0),
+                             ssa=torch.full_like(z, 0.9), g=torch.full_like(z, 0.7))
+    scene = AllskyScene(
+        atm=atm, cat=build_catalog(lines, device=dev, dtype=torch.float64),
+        pf=rigid_rotor_table(1, 180.0, 1.5, device=dev, dtype=torch.float64),
+        scatterers=(cloud,), surface_temperature=torch.tensor(288.0, **f64),
+        surface_albedo=torch.tensor(0.0, **f64))
+    return move(scene, dev, dt)
+
+
+def _cloud_targets(idx):
+    """log extinction and single scattering albedo of the cloud at the
+    levels idx, and the surface temperature."""
+    def leaf(name):
+        return lambda s: getattr(s.scatterers[0], name)[idx]
+
+    def put(name):
+        def set_(s, v):
+            hg = s.scatterers[0]
+            new = dataclasses.replace(hg, **{name: getattr(hg, name).index_put((idx,), v)})
+            return dataclasses.replace(s, scatterers=(new,) + s.scatterers[1:])
+        return set_
+
+    return [
+        RetrievalTarget("cloud_ext", leaf("ext"), put("ext"), transform="log"),
+        RetrievalTarget("cloud_ssa", leaf("ssa"), put("ssa"), transform="id"),
+        RetrievalTarget("t_surface", lambda s: s.surface_temperature[None],
+                        lambda s, v: dataclasses.replace(s, surface_temperature=v[0])),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class CloudRetrieval:
+    """An OEM cloud retrieval through the differentiable all-sky route.
+
+    The state is log cloud extinction and single scattering albedo at the
+    in-cloud levels, then the surface temperature; the measurement is the
+    TOA upwelling flux and the most-nadir TOA radiance at every frequency
+    (m = 2F).  The state and the covariances are float64; the forward
+    model runs in the mapping's dtype on its device."""
+
+    f_grid: torch.Tensor  # [F]
+    k_gas: torch.Tensor  # [F, Z] gas absorption, TOA first (fixed: the state moves no gas)
+    mapping: StateMapping
+    nquad: int
+    cloud_z: torch.Tensor  # [nc] altitudes of the in-cloud levels [m]
+    x_a: torch.Tensor  # [n] prior state (float64)
+    S_a: torch.Tensor  # [n, n]
+    S_e: torch.Tensor  # [m] noise variances
+    x_true: torch.Tensor  # [n]
+    y_obs: torch.Tensor  # [m] forward(x_true)
+
+    @property
+    def scene(self):
+        return self.mapping.ref_scene
+
+    def forward(self, x, plain=False):
+        """The measurement at state x through simulate_allsky's
+        differentiable route (fast_linalg=False); plain=True runs the
+        kernels' plain versions."""
+        m = self.mapping
+        out = simulate_allsky(m.to_scene(x.to(m.dtype)), self.f_grid, nquad=self.nquad,
+                              k_gas=self.k_gas, fast_linalg=False, plain=plain,
+                              device=m.device, dtype=m.dtype)
+        return torch.cat([out.flux_up[:, 0], out.u0[:, 0, -1]])
+
+    def astype(self, dtype):
+        """The same retrieval with the forward model in `dtype`, on the same
+        inputs (the scene, grid and gas absorption cast)."""
+        m = self.mapping
+        f, k = move((self.f_grid, self.k_gas), m.device, dtype)
+        mapping = StateMapping(m.targets, m.ref_scene, device=m.device, dtype=dtype)
+        return dataclasses.replace(self, f_grid=f, k_gas=k, mapping=mapping)
+
+
+def build_cloud_retrieval(n_lev=51, n_freq=4096, nquad=16, device=None, dtype=None):
+    """The cloud-retrieval case on window_scene(n_lev): frequencies 170-240
+    GHz, the gas absorption computed once by gas_absorption_profile (the
+    Voigt kernel), the prior (log extinction sd 0.5 with an exponential
+    correlation over 3 km, ssa sd 0.1, surface sd 5 K), the truth (an
+    extinction bump x(1 + 0.6 exp(-((z - 6 km)/1.5 km)^2 / 2)), ssa - 0.05,
+    surface + 2 K), y_obs = forward(x_true) and noise sd 1e-4 of mean
+    |y_obs|."""
+    dev, dt = resolve(device, dtype)
+    scene = window_scene(n_lev, device=dev, dtype=dt)
+    f = torch.as_tensor(np.linspace(170e9, 240e9, n_freq), dtype=dt, device=dev)
+    z = scene.atm.z
+    idx = torch.nonzero((z > 4e3) & (z < 8e3))[:, 0]
+    mapping = StateMapping(_cloud_targets(idx), scene, device=dev, dtype=dt)
+    zc = z[idx].double().cpu().numpy()
+    nc = len(zc)
+    x_a = mapping.to_vector(scene).double()
+    bump = 1.0 + 0.6 * np.exp(-0.5 * ((zc - 6e3) / 1.5e3) ** 2)
+    dx = np.concatenate([np.log(bump), np.full(nc, -0.05), [2.0]])
+    x_true = x_a + torch.as_tensor(dx, device=dev)
+    S_a = covariance.block_diag(covariance.exponential(zc, 0.5, 3e3),
+                                covariance.diagonal(np.full(nc, 0.1)),
+                                covariance.diagonal([5.0])).to(dev)
+    case = CloudRetrieval(
+        f_grid=f, k_gas=gas_absorption_profile(scene, f, device=dev, dtype=dt),
+        mapping=mapping, nquad=nquad, cloud_z=z[idx], x_a=x_a, S_a=S_a,
+        S_e=x_a.new_zeros(0), x_true=x_true, y_obs=x_a.new_zeros(0))
+    y = case.forward(x_true).double()
+    noise = 1e-4 * float(y.abs().mean())
+    return dataclasses.replace(case, y_obs=y, S_e=torch.full_like(y, noise**2))

@@ -33,15 +33,31 @@
    (one O2 118.75 GHz line, 401 frequencies, 51 levels to 100 km, an
    up-looking path in 2 km steps, a constant [0, 3e-5, 3e-5] T field) in
    float64 on the card and on the CPU: equal to 1e-10 of scale, |V| > 0;
-9. prints each kernel's launches on its path, time, plain-version time,
-   largest difference and bound as one JSON line, then the card line,
-   then {"ok": true, "device": {...}} as the last line.
+9. (after phase 4, on the benchmark scene) holds the Jacobi eigh kernel
+   against its plain version on the differentiable route's Hsym batch
+   (241,664 problems of 8 x 8) in float64 and float32 (eigenvalues,
+   reconstruction, orthogonality), timed beside torch.linalg.eigh; holds
+   the fused_eigen kernel against its plain version and against the
+   differentiable route's eigen stage, then drives its entry point; and
+   holds the differentiable all-sky route (simulate_allsky(fast_linalg=
+   False)) and the fused route in float32 against the float64 plain
+   differentiable route on the same inputs at the bench guards;
+10. runs the OEM cloud retrieval at full width (scene.build_cloud_retrieval:
+   51 levels, 4096 frequencies, 16 streams, float32): its Jacobian
+   against the float64 plain route on the same inputs, then the
+   Gauss-Newton retrieval from the prior (counters set to 0 just before,
+   read just after), held to the truth, and the times of one forward,
+   one Jacobian and one Gauss-Newton iteration;
+11. prints each kernel's launches on its path, time, plain-version time,
+   library time, largest difference and bound as one JSON line, then the
+   card line, then {"ok": true, "device": {...}} as the last line.
 
 Every check raises on failure.  Without a CUDA device the script exits
 with status 1 and prints no result.  It imports nothing of JAX.
 """
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -164,7 +180,8 @@ def phase_build():
         f"(nvcc {info.get('seconds', 0.0):.1f} s, cached={info.get('cached')}) -> {info['library']}")
     name = None
     for line in info.get("ptxas", "").splitlines():
-        m = re.search(r"(voigt_sum_kernel|stage1_kernel|stage23_kernel|zeeman_mp_kernel)"
+        m = re.search(r"(voigt_sum_kernel|stage1_kernel|stage23_kernel|zeeman_mp_kernel|"
+                      r"fused_eigen_kernel|eigh_jacobi_kernel|eigh_jacobi_local_kernel)"
                       r"I([fd])(?:Li(\d+)E)?", line)
         if "Compiling entry function" in line and m:
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}" + (
@@ -433,6 +450,251 @@ def phase_main_path(scenes, dev, _cuda, reps=5):
     return launches
 
 
+def jacobi_flops(n, sweeps):
+    """Operations per matrix of the tournament Jacobi sweeps (csrc/jacobi.cuh):
+    per rotation pair ~16 for the angle and 18 n for the row, column and V
+    updates, n/2 pairs (n even) per round, n - 1 rounds per sweep."""
+    return sweeps * (n - 1) * (n // 2) * (16 + 18 * n)
+
+
+def eigen_flops(n, sweeps):
+    """Operations per (lane, layer) problem of fused_eigen_kernel: stage 1
+    without the thermal particular solution (csrc/disort_fused.cu)."""
+    thermal = 2 * n * n + 2 * n + ge_flops(n, 2) + ge_flops(n, 1) + 9 * n
+    return stage1_flops(n, sweeps) - thermal
+
+
+def bench_hsym(scene, f, dev, dt):
+    """(disort terms, Pp, Pm, Hsym) of the benchmark scene's DISORT problem
+    in dtype dt: Hsym [F, 1, L, n, n], the batch of the differentiable
+    route's eigh."""
+    from arts_tpu_torch import gas_absorption_profile
+    from arts_tpu_torch.disort.solver import hsym, phase_matrices, solve_terms
+    from arts_tpu_torch.fwd_allsky import allsky_input
+
+    inp = allsky_input(scene, f, gas_absorption_profile(scene, f, device=dev, dtype=dt), NQUAD)
+    t = solve_terms(inp, NQUAD, 1)
+    Pp, Pm = phase_matrices(t["leg_scaled"], t["lam"], t["sign"])
+    mu = torch.as_tensor(t["mu"], dtype=dt, device=dev)
+    w = torch.as_tensor(t["w"], dtype=dt, device=dev)
+    return t, Pp, Pm, hsym(Pp, Pm, t["omega_p"], mu, w)[0]
+
+
+LIB_CHUNK = 16384
+
+
+def phase_eigh(hs, dev):
+    """Kernel 7 on the Hsym batch of the benchmark scene (hs, bench_hsym per
+    dtype) against its plain version, float64 and float32; times beside
+    torch.linalg.eigh."""
+    from arts_tpu_torch import _cuda
+    from arts_tpu_torch.ops import eigh_jacobi as E
+
+    max_abs = 0.0
+    batches = {}
+    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 2e-6)):
+        H = hs[dt][3]
+        A = H.reshape(-1, H.shape[-1], H.shape[-1]).contiguous()
+        batches[dt] = A
+        w, V = E.eigh_jacobi_kernel(A)
+        w_p, V_p = E.eigh_jacobi_plain(A)
+        torch.cuda.synchronize()
+        n = A.shape[-1]
+        scale = float(w_p.abs().max())
+        err = float((w - w_p).abs().max())
+        a_scale = float(A.abs().max())
+        recon = float((A @ V - V * w[..., None, :]).abs().max()) / a_scale
+        orth = float((V.mT @ V - torch.eye(n, dtype=dt, device=dev)).abs().max())
+        v_err = float((V - V_p).abs().max())
+        log(f"eigh_jacobi {str(dt)[6:]} [{A.shape[0]} x {n} x {n}]: eigenvalues max|diff| "
+            f"{err:.3e} ({err / scale:.2e} of scale; held at {tol}), eigenvectors vs plain "
+            f"{v_err:.3e}; |A V - V diag(w)| / |A| {recon:.2e}, |V^T V - I| {orth:.2e} "
+            f"(both held at {4 * tol})")
+        require(err <= tol * scale, f"eigh_jacobi {dt} eigenvalues {err / scale:.3e} > {tol}")
+        require(recon <= 4 * tol and orth <= 4 * tol,
+                f"eigh_jacobi {dt} reconstruction {recon:.3e} / orthogonality {orth:.3e}")
+        if dt == torch.float32:
+            max_abs = err
+
+    A = batches[torch.float32]
+    B, n = A.shape[0], A.shape[-1]
+    a = A.reshape(B, n * n).t().contiguous()
+    w = torch.empty((n, B), dtype=A.dtype, device=dev)
+    V = torch.empty((n * n, B), dtype=A.dtype, device=dev)
+    launch = lambda: _cuda.launch("eigh_jacobi", A.dtype, *map(_cuda.ptr, (a, w, V)), n, B, 6)
+    ms = cuda_ms(launch, 20)
+    wrapper_ms = cuda_ms(lambda: E.eigh_jacobi_kernel(A), 20)
+    plain_ms = cuda_ms(lambda: E.eigh_jacobi_plain(A), 2)
+    # torch.linalg.eigh: cuSOLVER's batched syev refuses batches of 32,768
+    # matrices or more (CUSOLVER_STATUS_INVALID_VALUE; 16,384 pass), so the
+    # library time is the sum over calls of LIB_CHUNK matrices each
+    library_ms = cuda_ms(lambda: [torch.linalg.eigh(c) for c in A.split(LIB_CHUNK)], 2)
+    b_ms, b_by = bound(B * jacobi_flops(n, 6), nbytes(A) + B * (n + n * n) * 4)
+    log(f"eigh_jacobi float32 [{B} x {n} x {n}]: kernel {ms:.3f} ms, wrapper with the lane "
+        f"transposes {wrapper_ms:.3f} ms (plain {plain_ms:.1f} ms, torch.linalg.eigh "
+        f"{library_ms:.3f} ms in {-(-B // LIB_CHUNK)} calls of <= {LIB_CHUNK}), "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(
+        name="eigh_jacobi", route="cuda", source="arts_tpu_torch/csrc/eigh_jacobi.cu",
+        replaces="arts_tpu/ops/eigh_jacobi.py:235", max_abs_err=max_abs, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+    )
+
+
+def phase_fused_eigen(hs, dev, _cuda):
+    """Kernel 8 on the benchmark scene's layers against its plain version
+    (mode for mode) and against the differentiable route's eigen stage
+    (sorted k and order-invariant sums); then its entry point, fused_eigen,
+    at full width with the counts set to 0 just before and read after."""
+    from arts_tpu_torch.disort import eigen_kernel as EK
+    from arts_tpu_torch.disort.fused_kernel import stage1_inputs
+    from arts_tpu_torch.disort.solver import _eigen
+
+    max_abs = 0.0
+    lanes = {}
+    # rtol of each output's own scale (float32: stage 1's 1e-4), plus for
+    # G+- and the sums below a floor for cancellation, `floor` of a scale
+    # shared by the outputs: G+ and G- are (Y + D)/2 and (Y - D)/2, and in
+    # the gas-only layers G+ is zero up to the rounding of Y and D, whose
+    # scale is G-'s.  The floor lies far below G+'s own largest entry (~1e-4
+    # of the shared scale on the benchmark scene), so a wrong G+ cannot
+    # hide under it.
+    for dt, rtol, floor in ((torch.float64, 1e-12, 1e-13), (torch.float32, 1e-4, 1e-6)):
+        t, Pp, Pm, _ = hs[dt]
+        zero = torch.zeros_like(t["tb0"])
+        s1 = stage1_inputs(t["leg_scaled"], t["omega_p"], t["dtau_p"], zero, zero,
+                           lam=t["lam"], sign=t["sign"], mu=t["mu"], w=t["w"])
+        pp, pm, om, dtau, _, _, q = s1
+        lanes[dt] = (pp, pm, om, dtau, q)
+        sw = 8 if dt == torch.float64 else 6
+        got = EK.eigen_lanes(pp, pm, om, dtau, q, sw)
+        want = EK.eigen_lanes_plain(pp, pm, om, dtau, q, sw)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("k", "Ek"), got, want):
+            err, r = close(x, y, rtol, rtol, f"fused_eigen {dt} {name}")
+            log(f"fused_eigen {str(dt)[6:]} {name} vs plain: max|diff| {err:.3e} ({r:.2e} of "
+                f"scale; held at rtol {rtol}, atol {rtol} * scale)")
+            if dt == torch.float32:
+                max_abs = max(max_abs, err)
+        g_scale = max(float(y.abs().max()) for y in want[2:])
+        for name, x, y in zip(("G+", "G-"), got[2:], want[2:]):
+            own = float(y.abs().max())
+            err, lim = float((x - y).abs().max()), rtol * own + floor * g_scale
+            log(f"fused_eigen {str(dt)[6:]} {name} vs plain: max|diff| {err:.3e} "
+                f"({err / own:.2e} of its scale {own:.3e}; held at {lim:.3e} = {rtol} of it "
+                f"+ {floor} of the G+- scale {g_scale:.3e})")
+            require(bool(torch.isfinite(x).all()) and err <= lim,
+                    f"fused_eigen {dt} {name}: max|diff| {err:.3e} > {lim:.3e}")
+            if dt == torch.float32:
+                max_abs = max(max_abs, err)
+        # against the differentiable route's eigen stage (LAPACK-free, sorted):
+        # sorted k, and sum_i Ek_i A[:, i] B[:, i]^T (tests/test_tpu_kernels.py:117)
+        mu = torch.as_tensor(t["mu"], dtype=dt, device=dev)
+        w = torch.as_tensor(t["w"], dtype=dt, device=dev)
+        k_r, Gp_r, Gm_r = _eigen(Pp, Pm, t["omega_p"], mu, w)
+        L, n, F = got[0].shape
+        k_f = got[0].permute(2, 0, 1)  # [F, L, n]
+        Ek_f = got[1].permute(2, 0, 1)
+        Gp_f, Gm_f = (x.view(L, n, n, F).permute(3, 0, 1, 2) for x in got[2:])
+        k_r, Gp_r, Gm_r = k_r[:, 0], Gp_r[:, 0], Gm_r[:, 0]
+        Ek_r = torch.exp(-k_r * t["dtau_p"][..., None])
+        lim_k, lim_s = (1e-10, 1e-9) if dt == torch.float64 else (1e-4, 1e-4)
+        rk = rel(k_f.sort(-1).values, k_r.sort(-1).values)
+        # each sum at lim_s of its own scale plus the floor of the largest
+        # (the G- G-^T sum's).  On the benchmark scene the sums with G+ are
+        # at rounding level (<= 4e-12 at float64), so the comparison with
+        # the plain version above is what holds G+
+        sums = [(torch.einsum("...i,...ji,...ki->...jk", Ek_f, A_f, B_f),
+                 torch.einsum("...i,...ji,...ki->...jk", Ek_r, A_r, B_r))
+                for A_r, B_r, A_f, B_f in ((Gp_r, Gm_r, Gp_f, Gm_f), (Gp_r, Gp_r, Gp_f, Gp_f),
+                                           (Gm_r, Gm_r, Gm_f, Gm_f))]
+        s_scale = max(float(r.abs().max()) for _, r in sums)
+        rs = []
+        for name, (f_, r) in zip(("G+ G-^T", "G+ G+^T", "G- G-^T"), sums):
+            own = float(r.abs().max())
+            err, lim = float((f_ - r).abs().max()), lim_s * own + floor * s_scale
+            rs.append(err / lim)
+            log(f"fused_eigen {str(dt)[6:]} vs the differentiable route's eigen stage, sum of "
+                f"Ek {name}: max|diff| {err:.3e} ({err / own:.2e} of its scale {own:.3e}; held "
+                f"at {lim:.3e} = {lim_s} of it + {floor} of the largest sum's scale)")
+        log(f"fused_eigen {str(dt)[6:]} vs the differentiable route's eigen stage: sorted k "
+            f"{rk:.2e} of scale (held at {lim_k})")
+        require(rk <= lim_k and max(rs) <= 1.0,
+                f"fused_eigen {dt} vs _eigen: k {rk:.3e}, sums at {max(rs):.3e} of their limits")
+
+    pp, pm, om, dtau, q = lanes[torch.float32]
+    L, nn, B = pp.shape
+    n = math.isqrt(nn)
+    ms = cuda_ms(lambda: EK.eigen_lanes(pp, pm, om, dtau, q, 6), 10)
+    plain_ms = cuda_ms(lambda: EK.eigen_lanes_plain(pp, pm, om, dtau, q, 6), 2)
+    outs = EK.eigen_lanes_plain(pp, pm, om, dtau, q, 6)
+    b_ms, b_by = bound(B * L * eigen_flops(n, 6), nbytes(pp, pm, om, dtau, q) + nbytes(*outs))
+    log(f"fused_eigen float32 [{L} x {B}] n={n}: {ms:.3f} ms (plain {plain_ms:.1f} ms), "
+        f"bound {b_ms:.4f} ms ({b_by})")
+
+    # its path: the entry point on the [F, 1, L, n, n] phase matrices
+    t, Pp, Pm, _ = hs[torch.float32]
+    kw = dict(omega=t["omega_p"][:, None], dtau=t["dtau_p"][:, None], mu=t["mu"], w=t["w"],
+              device=dev)
+    EK.fused_eigen(Pp, Pm, **kw)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    k, Ek, Gp, Gm = EK.fused_eigen(Pp, Pm, **kw)
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    log(f"fused_eigen entry point, float32, {tuple(Pp.shape)}: {path_ms:.2f} ms, launches {launches}")
+    require(launches["fused_eigen"] > 0, "fused_eigen was not launched by its entry point")
+    require(tuple(Gp.shape) == tuple(Pp.shape) and tuple(k.shape) == tuple(Pp.shape[:-1]),
+            f"fused_eigen shapes {tuple(k.shape)}, {tuple(Gp.shape)}")
+    require(bool(torch.isfinite(Gp).all() and torch.isfinite(k).all()), "non-finite fused_eigen")
+    return dict(
+        name="fused_eigen", route="cuda", source="arts_tpu_torch/csrc/disort_fused.cu",
+        replaces="arts_tpu/disort/eigen_kernel.py:207", launches=launches["fused_eigen"],
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+    )
+
+
+def phase_differentiable_allsky(scenes, dev, _cuda, reps=3):
+    """The differentiable all-sky route (fast_linalg=False) and the fused
+    route in float32 against the float64 plain differentiable route on the
+    same inputs, at the bench guards; the route's wall time and launches."""
+    from arts_tpu_torch import gas_absorption_profile, simulate_allsky
+    from arts_tpu_torch._cuda import move
+
+    scene, f = scenes[torch.float32]
+    kw = dict(device=dev, dtype=torch.float32)
+    k = gas_absorption_profile(scene, f, **kw)
+    route = lambda: simulate_allsky(scene, f, nquad=NQUAD, nfourier=1, k_gas=k,
+                                    fast_linalg=False, **kw)
+    route()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = route()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_cuda.LAUNCHES)
+    require(launches["eigh_jacobi"] > 0, "eigh_jacobi was not launched on the differentiable route")
+    fused = simulate_allsky(scene, f, nquad=NQUAD, nfourier=1, k_gas=k, **kw)
+    scene64, f64, k64 = move((scene, f, k), dev, torch.float64)
+    ref = simulate_allsky(scene64, f64, nquad=NQUAD, nfourier=1, k_gas=k64, fast_linalg=False,
+                          plain=True, device=dev, dtype=torch.float64)
+    for what, got in (("differentiable", out), ("fused", fused)):
+        for key, lim in (("flux_up", 3e-3), ("u0", 5e-3)):
+            r = rel(getattr(got, key), getattr(ref, key))
+            log(f"{what} route float32 vs float64 plain differentiable route (same inputs), "
+                f"{key}: {r:.3e} of scale (limit {lim})")
+            require(r <= lim, f"{what} route {key} {r:.3e} > {lim}")
+    log(f"differentiable route, float32, {f.shape[0]} freqs x {scene.atm.z.shape[0]} levels, "
+        f"{NQUAD} streams: median {np.median(times):.2f} ms of {reps} runs "
+        f"{[round(x, 3) for x in times]}; launches over the {reps} runs {launches}")
+
+
 # the oblique field of tests/test_zeeman.py:123, under which all 7
 # propagation-matrix components are nonzero
 OBLIQUE = ([10e-6, -20e-6, 40e-6], 65.0, 30.0)
@@ -682,6 +944,111 @@ def phase_clearsky_polarized(dev):
     require(vmax > 0, "no circular polarization")
 
 
+def sync_ms(fn, reps=3):
+    """Median wall time of fn over reps calls, each ending in a synchronize."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out)), [round(x, 3) for x in out]
+
+
+def phase_retrieval(dev, _cuda):
+    """The OEM cloud retrieval at full width (scene.build_cloud_retrieval:
+    51 levels, 4096 frequencies, 16 streams, float32): Jacobians against
+    the float64 plain route on the same inputs, then the Gauss-Newton
+    retrieval with the counts set to 0 just before and read just after."""
+    from arts_tpu_torch.retrieval import oem
+    from arts_tpu_torch.scene import build_cloud_retrieval
+
+    t0 = time.perf_counter()
+    case = build_cloud_retrieval(device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    log(f"cloud retrieval case built in {time.perf_counter() - t0:.1f} s: state {case.x_a.numel()}, "
+        f"measurement {case.y_obs.numel()}, cloud levels at {case.cloud_z.tolist()} m")
+    case64 = case.astype(torch.float64)
+    jac = lambda c, plain=False: torch.func.jacfwd(lambda x: c.forward(x, plain=plain))(c.x_a)
+    J32 = jac(case).double()
+    J64p = jac(case64, plain=True)
+    J64k = jac(case64)
+    col = J64p.abs().amax(0)
+    r32 = ((J32 - J64p).abs().amax(0) / col).tolist()
+    r64 = ((J64k - J64p).abs().amax(0) / col).tolist()
+    log(f"Jacobian column scales (float64 plain): {col.tolist()}")
+    log(f"Jacobian float32 kernel route vs float64 plain route, per column of max: "
+        f"{[f'{x:.2e}' for x in r32]} (held at 5e-3)")
+    log(f"Jacobian float64 kernel route vs float64 plain route, per column of max: "
+        f"{[f'{x:.2e}' for x in r64]} (held at 1e-9)")
+    require(bool((col > 0).all()), "a Jacobian column is zero")
+    require(max(r32) <= 5e-3, f"float32 Jacobian {max(r32):.3e} > 5e-3")
+    require(max(r64) <= 1e-9, f"float64 kernel-route Jacobian {max(r64):.3e} > 1e-9")
+    del case64, J32, J64p, J64k
+
+    args = (case.x_a, case.y_obs, case.S_a, case.S_e)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = oem(case.forward, *args, method="gn", max_iter=10, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    nc = case.cloud_z.numel()
+    d = (res.x - case.x_true).tolist()
+    log(f"GN retrieval (float32 forward, float64 normal equations): {res.n_iter} iterations, "
+        f"converged {res.converged}, cost {res.cost:.4e}, {run_s:.2f} s; launches {launches}")
+    log(f"retrieved - truth: log extinction {d[:nc]}, ssa {d[nc:2 * nc]}, surface {d[-1]:.4e} K; "
+        f"averaging-kernel diagonal {torch.diagonal(res.averaging_kernel).tolist()}")
+    require(res.converged and res.n_iter <= 10, f"GN did not converge in 10 ({res.n_iter})")
+    require(max(abs(x) for x in d[:nc]) <= 0.02, f"log extinction off by {d[:nc]}")
+    require(max(abs(x) for x in d[nc:2 * nc]) <= 0.01, f"ssa off by {d[nc:2 * nc]}")
+    require(abs(d[-1]) <= 0.2, f"surface temperature off by {d[-1]:.3e} K")
+    require(launches["eigh_jacobi"] > 0 and launches["voigt_sum"] == 0,
+            f"retrieval launches {launches}")
+
+    # one forward, one Jacobian, one Gauss-Newton iteration (the Jacobian,
+    # the normal equations and the forward at the new state)
+    x = case.x_a
+    fwd_ms, fwd_runs = sync_ms(lambda: case.forward(x))
+    jac_ms, jac_runs = sync_ms(lambda: torch.func.jacfwd(case.forward)(x))
+    Se_inv = 1.0 / case.S_e
+    Sa_inv = torch.linalg.inv(case.S_a)
+
+    def gn_iteration():
+        J = torch.func.jacfwd(case.forward)(x).double()
+        H = (J.T * Se_inv) @ J + Sa_inv
+        g = (J.T * Se_inv) @ (case.y_obs - y0) - Sa_inv @ (x - case.x_a)
+        return case.forward(x + torch.linalg.solve(H, g))
+
+    y0 = case.forward(x).double()
+    _cuda.reset_launches()
+    gn_ms, gn_runs = sync_ms(gn_iteration)
+    per_iter = {k: v // 3 for k, v in _cuda.LAUNCHES.items() if v}
+    F, Z = case.f_grid.numel(), case.scene.atm.z.numel()
+    log(f"retrieval timings, float32, {F} freqs x {Z} levels: forward {fwd_ms:.2f} ms {fwd_runs}, "
+        f"Jacobian ({x.numel()} columns, jacfwd) {jac_ms:.2f} ms {jac_runs}, one GN iteration "
+        f"{gn_ms:.2f} ms {gn_runs}; launches per GN iteration {per_iter}")
+
+    # one profiled GN iteration: device busy share and time by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gn_iteration()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages() if e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profiled GN iteration: wall {wall_ms:.2f} ms (profiler on), device busy "
+        f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} device ops")
+    for ms, count, key in rows[:12]:
+        log(f"  {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -699,6 +1066,11 @@ def main():
     launches = phase_main_path(scenes, dev, _cuda)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    hs = {dt: bench_hsym(*scenes[dt], dev, dt) for dt in scenes}
+    eigh = phase_eigh(hs, dev)
+    fused_eigen = phase_fused_eigen(hs, dev, _cuda)
+    del hs
+    phase_differentiable_allsky(scenes, dev, _cuda)
     del scenes
     t0 = time.perf_counter()
     zin = {dt: build_zeeman_inputs(device=dev, dtype=dt) for dt in (torch.float64, torch.float32)}
@@ -708,6 +1080,9 @@ def main():
     mp["launches"] = phase_zeeman_stage(zin, dev, _cuda)["zeeman_mp"]
     kernels.append(mp)
     phase_clearsky_polarized(dev)
+    del zin
+    eigh["launches"] = phase_retrieval(dev, _cuda)["eigh_jacobi"]
+    kernels += [eigh, fused_eigen]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

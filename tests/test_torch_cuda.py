@@ -99,3 +99,95 @@ def test_zeeman_mp_kernel_matches_plain(dev, dtype, atol):
     got = MP.zeeman_mp_kernel(f, rec).double()
     want = MP.zeeman_mp_plain(f, rec).double()
     assert bool(((got - want).abs() <= atol * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("n", [3, 4, 8, 12, 16])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 2e-6)])
+def test_eigh_kernel_matches_plain(dev, n, dtype, tol):
+    """The Jacobi eigh kernel against its plain version on 3000 random
+    symmetric matrices (the unrolled instance for n <= 8, the run-time-n
+    instance above): eigenvalues within tol of scale, A V = V diag(w) and
+    V^T V = I within 4 tol (of scale)."""
+    from arts_tpu_torch.ops.eigh_jacobi import eigh_jacobi_kernel, eigh_jacobi_plain
+
+    X = torch.tensor(np.random.default_rng(n).normal(size=(3000, n, n)), dtype=dtype, device=dev)
+    A = X + X.mT
+    w, V = eigh_jacobi_kernel(A)
+    w_ref, _ = eigh_jacobi_plain(A)
+    scale = float(A.abs().max())
+    assert float((w - w_ref).abs().max()) <= tol * scale
+    assert float((A @ V - V * w[..., None, :]).abs().max()) <= 4 * tol * scale
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    assert float((V.mT @ V - eye).abs().max()) <= 4 * tol
+
+
+def test_eigh_vmap_rule_launches_the_kernel_once(dev):
+    """torch.func.vmap over A (mapped axis in the middle) on the card: the
+    vmap rule folds the mapped axis into the batch of one kernel launch,
+    bit for bit the launches on each mapped slice."""
+    from arts_tpu_torch import _cuda
+    from arts_tpu_torch.ops.eigh_jacobi import eigh_jacobi
+
+    X = torch.tensor(np.random.default_rng(5).normal(size=(300, 7, 8, 8)), device=dev)
+    A = (X + X.mT).permute(0, 2, 1, 3).contiguous()  # [300, 8, 7, 8], A[:, :, i] symmetric
+    _cuda.reset_launches()
+    w, V = torch.func.vmap(lambda a: eigh_jacobi(a, device=dev), in_dims=2)(A)
+    assert _cuda.LAUNCHES["eigh_jacobi"] == 1 and tuple(V.shape) == (7, 300, 8, 8)
+    for i in range(7):
+        wi, Vi = eigh_jacobi(A[:, :, i], device=dev)
+        assert torch.equal(w[i], wi) and torch.equal(V[i], Vi)
+
+
+@pytest.mark.parametrize("nquad", [8, 16])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+def test_fused_eigen_kernel_matches_plain(dev, nquad, dtype, tol):
+    """The standalone eigen-stage kernel against its plain version on 300
+    random layers: k, Ek and G+- mode for mode (the same Jacobi schedule
+    leaves the same order) within tol of scale; float32 at stage 1's
+    1e-4 (chip_smoke.py)."""
+    from arts_tpu_torch.disort.eigen_kernel import eigen_lanes, eigen_lanes_plain
+    from arts_tpu_torch.disort.fused_kernel import stage1_inputs
+    from arts_tpu_torch.disort.quadrature import double_gauss, lambda_tables
+
+    rng = np.random.default_rng(nquad)
+    n, B, L = nquad // 2, 300, 7
+    mu, w = double_gauss(n)
+    lam, sign = lambda_tables(1, nquad, n)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    g = rng.uniform(0.0, 0.85, (B, L))
+    legs = t((2 * np.arange(nquad) + 1) * g[..., None] ** np.arange(nquad))
+    zero = t(np.zeros((B, 1, L)))
+    pp, pm, om, dtau, _, _, q = stage1_inputs(
+        legs, t(rng.uniform(0.05, 0.95, (B, L))), t(rng.uniform(1e-3, 1.5, (B, L))), zero, zero,
+        lam=lam, sign=sign, mu=mu, w=w)
+    sweeps = 8 if dtype == torch.float64 else 6
+    for got, want in zip(eigen_lanes(pp, pm, om, dtau, q, sweeps),
+                         eigen_lanes_plain(pp, pm, om, dtau, q, sweeps)):
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_differentiable_route_kernel_matches_plain(dev):
+    """simulate-style problems through disort(fast_linalg=False) in
+    float64: the eigh kernel route against the plain route to 1e-10 of
+    scale, and its Jacobian (torch.func.jacfwd over tau) to 1e-9 of scale."""
+    from arts_tpu_torch.disort import DisortInput, disort
+
+    rng = np.random.default_rng(3)
+    F, L = 64, 6
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    base = dict(omega=t(rng.uniform(0.0, 0.9, (F, L))), leg=t(0.6 ** np.arange(16) * np.ones((F, L, 1))),
+                f=t(np.zeros((F, L))), b_levels=t(np.linspace(1.0, 2.0, L + 1) * np.ones((F, 1))),
+                fisot=t(np.zeros(F)), albedo=t(np.full(F, 0.1)), b_surf=t(np.full(F, 2.5)),
+                b_top=t(np.full(F, 0.01)))
+
+    def run(tau, plain):
+        out = disort(DisortInput(tau=tau, **base), nquad=16, fast_linalg=False, plain=plain,
+                     device=dev, dtype=torch.float64)
+        return torch.cat([out.flux_up[:, 0], out.u0[:, 0, -1]])
+
+    tau = t(rng.uniform(0.05, 2.0, (F, L)))
+    a, b = run(tau, False), run(tau, True)
+    assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
+    Ja = torch.func.jacfwd(lambda x: run(x, False))(tau)
+    Jb = torch.func.jacfwd(lambda x: run(x, True))(tau)
+    assert float((Ja - Jb).abs().max()) <= 1e-9 * float(Jb.abs().max())

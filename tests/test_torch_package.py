@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -64,12 +65,21 @@ def _entry_points():
         zeeman_catalog_from_numpy,
     )
     from arts_tpu_torch.disort import disort
+    from arts_tpu_torch.disort.eigen_kernel import fused_eigen
     from arts_tpu_torch.io.hitran import read_par, zeeman_catalog_from_par
     from arts_tpu_torch.lbl.catalog import build_catalog
     from arts_tpu_torch.lbl.partfun import rigid_rotor_table
     from arts_tpu_torch.lbl.voigt import absorption, absorption_kernel
     from arts_tpu_torch.lbl.zeeman import zeeman_propmat, zeeman_propmat_profile
-    from arts_tpu_torch.scene import build_scene, build_zeeman_inputs, synth_par_rows
+    from arts_tpu_torch.ops.eigh_jacobi import eigh_jacobi
+    from arts_tpu_torch.retrieval import RetrievalTarget, StateMapping, oem
+    from arts_tpu_torch.scene import (
+        build_cloud_retrieval,
+        build_scene,
+        build_zeeman_inputs,
+        synth_par_rows,
+        window_scene,
+    )
 
     lines = lambda: read_par(synth_par_rows(4), ["H2O", "O2"])
     zrows = lambda: synth_par_rows(4)
@@ -96,6 +106,16 @@ def _entry_points():
         "gas_absorption_profile": lambda o: gas_absorption_profile(o[0], o[1]),
         "simulate_allsky": lambda o: simulate_allsky(o[0], o[1]),
         "disort": lambda o: disort(o[3]),
+        "disort_differentiable": lambda o: disort(o[3], fast_linalg=False),
+        "simulate_allsky_differentiable": lambda o: simulate_allsky(o[0], o[1], fast_linalg=False),
+        "eigh_jacobi": lambda o: eigh_jacobi(torch.eye(3, dtype=torch.float64)),
+        "fused_eigen": lambda o: fused_eigen(torch.zeros(2, 4, 4), torch.zeros(2, 4, 4), 0.5, 1.0,
+                                             np.linspace(0.2, 0.8, 4), np.full(4, 0.25)),
+        "oem": lambda o: oem(lambda x: 2.0 * x, np.zeros(2), np.ones(2), np.ones(2), np.ones(2)),
+        "StateMapping": lambda o: StateMapping(
+            [RetrievalTarget("t", lambda s: s.surface_temperature[None], None)], o[0]),
+        "window_scene": lambda o: window_scene(n_lev=4),
+        "build_cloud_retrieval": lambda o: build_cloud_retrieval(n_lev=4, n_freq=8, nquad=4),
         "absorption": lambda o: absorption(o[1], o[0].cat, o[0].pf, o[2].t[0],
                                            o[2].p[0], o[2].vmr[0]),
         "absorption_kernel": lambda o: absorption_kernel(o[1], o[0].cat, o[0].pf,
