@@ -153,18 +153,16 @@ def build():
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # f, lines, ext, blkidx, nvisit, wcoef, out, Z, nf, nl, tl, tf, nweid,
-    # stream
-    "voigt_sum": [_P] * 7 + [_I] * 6 + [_P],
+    # f, lines, ext, blkidx, nvisit, wcoef, blkpol, tab, part, out, Z, nf,
+    # nl, nweid, split, stream (voigt_sum_pol alike)
+    "voigt_sum": [_P] * 10 + [_I] * 5 + [_P],
     # pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt, ub, vb,
     # n, L, B, sweeps, stream
     "disort_stage1": [_P] * 14 + [_I] * 4 + [_P],
     # gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, P, y, utop, vtop, ubot, vbot,
     # n, L, B, stream
     "disort_stage23": [_P] * 15 + [_I] * 3 + [_P],
-    # f, lines, ext, blkidx, nvisit, wcoef, pol, tab, out, Z, nf, nl, tl,
-    # tf, nweid, stream
-    "voigt_sum_pol": [_P] * 9 + [_I] * 6 + [_P],
+    "voigt_sum_pol": [_P] * 10 + [_I] * 5 + [_P],
     # f, rec, out, Z, F, NP, P, tf, stream
     "zeeman_mp": [_P] * 3 + [_I] * 5 + [_P],
     # a, w, v, n, B, sweeps, stream

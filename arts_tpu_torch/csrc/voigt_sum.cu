@@ -16,33 +16,41 @@
 //
 // The TPU kernel weights every line's term with its [7] row of pw [L, 7]
 // on the MXU.  Those rows take only three values per level (pi, sigma-,
-// sigma+), so here each thread keeps one sum per polarization, shared by
-// all seven components, and applies the level's [3, 7] table once per
-// frequency after the line loop: 3 accumulators instead of 7, a per-line
-// polarization index in shared memory instead of a [7] row, and fewer
-// roundings than seven weighted sums.
+// sigma+), and the tensor code pads each polarization's lines to whole
+// blocks, so every block holds one polarization (blkpol [nl]): the inner
+// loop is the unpolarized one, a visit's sum goes to its polarization's
+// accumulator, and the level's [3, 7] table is applied once per frequency
+// at the end.
 //
-// Design.  One CUDA block per (frequency tile, level), one thread per
-// frequency: the whole 60-level profile is one launch, where JAX vmaps the
-// pallas_call over levels.  The block reads its own visit count and loops
-// over its visited line blocks; for each it stages the block's seven line
-// columns in shared memory, chooses the w(z) tier once from the block's
-// |z|^2 lower bound (exactly the rule at voigt_kernel.py:439-496) and every
-// thread accumulates its frequency's sum in a register, so there is no
-// [8, F] partial and no reduction after the kernel.  The TPU's static-grid
-// machinery (max_visits, the approximate reciprocal and its Newton step,
-// sub-tiles, the coarse far field) has no counterpart here.
+// Design.  The unit of the tier rule and of the visit lists is one tile of
+// kTF = 256 frequencies x one block of kTL = 128 lines.  A CUDA block of
+// 256 threads takes one chunk of one (level, tile)'s visit list: the list
+// is cut into `split` chunks, so the 60 x 16 uneven lists become many
+// units of similar size that fill the 132 SMs, and the chunks' partial
+// sums are added in chunk order by a second kernel (no atomics: repeated
+// runs are bit-identical).  Inside the block, four groups of 64 threads
+// each take 32 lines of the staged block, and each thread 4 adjacent
+// frequencies, so one line record (two 16-byte shared loads in float32)
+// serves 4 pairs.  Line blocks are 8-wide records (f0, inv_gd, z_imag,
+// cutoff | s_re, s_im, swc, pad), one contiguous 4 KB (float32) array per
+// visit, copied into a ring of three shared buffers with cp.async while
+// the block before is summed.  The w(z) tier is chosen once per visit from
+// the block's |z|^2 lower bound (exactly the rule at voigt_kernel.py:439-
+// 496).  A line whose cutoff window misses all 128 frequencies of a warp
+// is skipped by that warp (a masked term is zero, so the sum is the same).
+// A thread's 4 frequencies take their divides together (recip), so the
+// compiler interleaves four dependency chains where the branch around
+// each `1.0f / x` serialized them, and the Laurent tiers fold the strength
+// and 1/sqrt(pi) into per-line products (Strength).  After the loop the
+// four groups' sums meet in shared memory and are added in a fixed order.
 //
 // Bound.  Per (line, frequency) pair the kernel does 14 (deep) to 155
 // (Weideman n = 16) floating-point operations (ops/voigt_kernel.py
-// pair_flops) on operands that live in registers and shared memory; the
-// bytes it moves are the line columns, read once per visit, and one output
-// per frequency.  So it is bound by operations on the FP32 pipes, not by
-// memory.  The design keeps it there: line data is staged once per block
-// and shared by all its threads, and the tier branch is uniform across the
-// block (only the Weideman tier's per-frequency blend diverges).  Divides
-// are IEEE (no fast math): the tolerances against the plain version need
-// them.
+// pair_flops) on operands in registers; the bytes it moves are the line
+// records, read once per visit, and one output per frequency.  So it is
+// bound by operations on the FP32 pipes, not by memory, and its time is
+// the instructions it executes per pair.  Divides are IEEE (no fast math):
+// the tolerances against the plain version need them.
 
 #include <cuda_runtime.h>
 
@@ -52,10 +60,30 @@ constexpr double kInvSqrtPi = 0.56418958354775628695;
 constexpr double kAsymR2 = 512.0;
 constexpr double kDeepR2 = 1.0e6;
 
+constexpr int kTF = 256;                      // frequencies per tile
+constexpr int kTL = 128;                      // lines per block
+constexpr int kR = 4;                         // frequencies per thread
+constexpr int kGroups = 4;                    // line groups per CUDA block
+constexpr int kThreads = kTF / kR * kGroups;  // 256, one per frequency too
+constexpr int kGroupLines = kTL / kGroups;    // 32
+constexpr int kRec = 8;                       // record width
+constexpr int kStages = 3;                    // staged line blocks in the ring
+static_assert(kThreads == kTF, "the epilogue gives each thread one frequency");
+
 // Laurent coefficients c_k = (2k-1)!!/2^k of w ~ i/(sqrt(pi) z) sum c_k z^-2k
-__constant__ double kLaurent[8] = {
-    1.0, 0.5, 0.75, 15.0 / 8.0, 105.0 / 16.0, 945.0 / 32.0,
-    10395.0 / 64.0, 135135.0 / 128.0};
+// (a switch, so that unrolled loops fold them into immediates)
+__device__ __forceinline__ constexpr double laurent(int k) {
+  switch (k) {
+    case 0: return 1.0;
+    case 1: return 0.5;
+    case 2: return 0.75;
+    case 3: return 15.0 / 8.0;
+    case 4: return 105.0 / 16.0;
+    case 5: return 945.0 / 32.0;
+    case 6: return 10395.0 / 64.0;
+    default: return 135135.0 / 128.0;
+  }
+}
 
 // products that the compiler must not fuse into an FMA: the tier gate
 // compares against the plain version's separately rounded arithmetic
@@ -66,266 +94,442 @@ template <typename T>
 __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
 
 template <typename T>
-__device__ __forceinline__ T tabs(T a) { return a < T(0) ? -a : a; }
+__device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
 
-// 1-term Laurent: the pure Lorentz far wing (|z|^2 > 2e6)
+// 16-byte asynchronous copy global -> shared, bypassing L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 template <typename T>
-struct Deep {
-  __device__ __forceinline__ void operator()(T zr, T zi, T& wr, T& wi) const {
-    const T inv = T(1) / (zr * zr + zi * zi) * T(kInvSqrtPi);
-    wr = zi * inv;
-    wi = zr * inv;
-  }
+struct Line {
+  T f0, igd, zi, cut, sr, si, swc;
 };
 
-// K-term Laurent series w ~ i/(sqrt(pi) z) sum_{k<K} c_k z^-2k
-template <typename T, int K>
-__device__ __forceinline__ void wofz_series(T zr, T zi, T& wr, T& wi) {
-  const T inv = T(1) / (zr * zr + zi * zi);
-  const T ur = (zr * zr - zi * zi) * inv * inv;
-  const T ui = (T(-2) * zr * zi) * inv * inv;
-  T sr = T(kLaurent[K - 1]);
-  T si = T(0);
+__device__ __forceinline__ Line<float> load_line(const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  return {a.x, a.y, a.z, a.w, b.x, b.y, b.z};
+}
+
+__device__ __forceinline__ Line<double> load_line(const double* p) {
+  const double2* q = reinterpret_cast<const double2*>(p);
+  const double2 a = q[0], b = q[1], c = q[2], d = q[3];
+  return {a.x, a.y, b.x, b.y, c.x, c.y, d.x};
+}
+
+// x <- 1 / x for a thread's kR denominators.  In float32 `1.0f / x` takes
+// a fast path for x in [2^-126, 2^126) (the hardware approximation and one
+// Newton step, correctly rounded there) and a branch around it for the
+// rest.  Here the kR reciprocals take that fast path together when all
+// are in range, so the compiler can interleave them; otherwise each is
+// `1.0f / x`.  Denominators are sums of squares, so NaN is the only
+// other value that can reach the fast path, and it stays NaN there too.
+__device__ __forceinline__ void recip(float (&x)[kR]) {
+  float lo = x[0], hi = x[0];
 #pragma unroll
-  for (int k = K - 2; k >= 0; --k) {
-    const T nr = sr * ur - si * ui + T(kLaurent[k]);
+  for (int r = 1; r < kR; ++r) {
+    lo = fminf(lo, x[r]);
+    hi = fmaxf(hi, x[r]);
+  }
+  if (lo >= 0x1p-126f && hi < 0x1p126f) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      float a;
+      asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(a) : "f"(x[r]));
+      x[r] = fmaf(a, fmaf(-x[r], a, 1.0f), a);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) x[r] = 1.0f / x[r];
+  }
+}
+
+__device__ __forceinline__ void recip(double (&x)[kR]) {
+#pragma unroll
+  for (int r = 0; r < kR; ++r) x[r] = 1.0 / x[r];
+}
+
+// The w(z) tiers.  Each gives one line's terms Re s (w(z) - wcut) at a
+// thread's kR frequencies, z = zr + i zi.  The Laurent tiers write
+// w = i S(z) / (sqrt(pi) z) = (zi + i zr) S / (sqrt(pi) |z|^2), so with
+// g = s (zi + i zr) / sqrt(pi), whose zi products are per line, a term is
+// Re(g S) / |z|^2 - Re(s wcut).
+template <typename T>
+struct Strength {
+  T ar, ai, arzi, aizi;  // a = s / sqrt(pi) and a zi
+  __device__ __forceinline__ explicit Strength(const Line<T>& ln)
+      : ar(ln.sr * T(kInvSqrtPi)), ai(ln.si * T(kInvSqrtPi)),
+        arzi(ln.sr * T(kInvSqrtPi) * ln.zi), aizi(ln.si * T(kInvSqrtPi) * ln.zi) {}
+};
+
+// |z|^2 -> 1 / |z|^2 at the kR frequencies
+template <typename T>
+__device__ __forceinline__ void inv_r2(const T (&zr)[kR], T zi, T (&inv)[kR]) {
+#pragma unroll
+  for (int r = 0; r < kR; ++r) inv[r] = zr[r] * zr[r] + zi * zi;
+  recip(inv);
+}
+
+// K-term Laurent series S = sum_{k<K} c_k z^-2k and the term Re(g S) / |z|^2
+// - swc, given inv = 1 / |z|^2; the top Horner step (from c_{K-1}) is
+// written out
+template <typename T, int K>
+__device__ __forceinline__ T series_term(T zr, const Line<T>& ln, const Strength<T>& a,
+                                         T inv) {
+  const T ur = (zr * zr - ln.zi * ln.zi) * inv * inv;
+  const T ui = (T(-2) * zr * ln.zi) * inv * inv;
+  T sr = T(laurent(K - 1)) * ur + T(laurent(K - 2));
+  T si = T(laurent(K - 1)) * ui;
+#pragma unroll
+  for (int k = K - 3; k >= 0; --k) {
+    const T nr = sr * ur - si * ui + T(laurent(k));
     si = sr * ui + si * ur;
     sr = nr;
   }
-  const T fr = zi * inv * T(kInvSqrtPi);
-  const T fi = zr * inv * T(kInvSqrtPi);
-  wr = fr * sr - fi * si;
-  wi = fr * si + fi * sr;
+  const T gr = a.arzi - a.ai * zr;
+  const T gi = a.ar * zr + a.aizi;
+  return (gr * sr - gi * si) * inv - ln.swc;
 }
+
+// 1-term Laurent: the pure Lorentz far wing (|z|^2 > 2e6), S = 1
+template <typename T>
+struct Deep {
+  __device__ __forceinline__ void operator()(const T (&zr)[kR], const Line<T>& ln,
+                                             T (&val)[kR]) const {
+    const Strength<T> a(ln);
+    T inv[kR];
+    inv_r2(zr, ln.zi, inv);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) val[r] = (a.arzi - a.ai * zr[r]) * inv[r] - ln.swc;
+  }
+};
 
 template <typename T, int K>
 struct Series {
-  __device__ __forceinline__ void operator()(T zr, T zi, T& wr, T& wi) const {
-    wofz_series<T, K>(zr, zi, wr, wi);
+  __device__ __forceinline__ void operator()(const T (&zr)[kR], const Line<T>& ln,
+                                             T (&val)[kR]) const {
+    const Strength<T> a(ln);
+    T inv[kR];
+    inv_r2(zr, ln.zi, inv);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) val[r] = series_term<T, K>(zr[r], ln, a, inv[r]);
   }
 };
 
-// Weideman rational of order n (coefficients in shared memory, L first),
-// blended with the K-term series where |z|^2 > 512
-template <typename T, int K>
+// Weideman rational of order N (coefficients in shared memory, L first),
+// blended with the K-term series where |z|^2 > 512; each frequency's one
+// divide (|z|^2 or |L - iz|^2) is taken with the others'.  The first two
+// Horner steps (from p = 0) are written out.
+template <typename T, int K, int N>
 struct Parts {
   const T* wc;
-  int n;
-  __device__ __forceinline__ void operator()(T zr, T zi, T& wr, T& wi) const {
-    if (zr * zr + zi * zi > T(kAsymR2)) {
-      wofz_series<T, K>(zr, zi, wr, wi);
-      return;
-    }
+  __device__ __forceinline__ void operator()(const T (&zr)[kR], const Line<T>& ln,
+                                             T (&val)[kR]) const {
+    const Strength<T> a(ln);
+    const T zi = ln.zi;
     const T Lw = wc[0];
     const T dr = Lw + zi;  // Re(L - iz)
-    const T di = -zr;      // Im(L - iz)
-    const T inv = T(1) / (dr * dr + di * di);
     const T nr = Lw - zi;  // Re(L + iz)
-    const T ni = zr;
-    const T Zr = (nr * dr + ni * di) * inv;
-    const T Zi = (ni * dr - nr * di) * inv;
-    T pr = T(0), pi = T(0);
-    for (int k = 1; k <= n; ++k) {
-      const T t = pr * Zr - pi * Zi + wc[k];
-      pi = pr * Zi + pi * Zr;
-      pr = t;
+    bool big[kR];
+    T inv[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const T r2 = zr[r] * zr[r] + zi * zi;
+      big[r] = r2 > T(kAsymR2);
+      inv[r] = big[r] ? r2 : dr * dr + zr[r] * zr[r];
     }
-    const T tr = (T(2) * (pr * dr + pi * di)) * inv + T(kInvSqrtPi);
-    const T ti = (T(2) * (pi * dr - pr * di)) * inv;
-    wr = (tr * dr + ti * di) * inv;
-    wi = (ti * dr - tr * di) * inv;
+    recip(inv);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (big[r]) {
+        val[r] = series_term<T, K>(zr[r], ln, a, inv[r]);
+        continue;
+      }
+      const T di = -zr[r];  // Im(L - iz)
+      const T ni = zr[r];   // Im(L + iz)
+      const T Zr = (nr * dr + ni * di) * inv[r];
+      const T Zi = (ni * dr - nr * di) * inv[r];
+      T pr = wc[1] * Zr + wc[2];
+      T pi = wc[1] * Zi;
+#pragma unroll
+      for (int k = 3; k <= N; ++k) {
+        const T t = pr * Zr - pi * Zi + wc[k];
+        pi = pr * Zi + pi * Zr;
+        pr = t;
+      }
+      const T tr = (T(2) * (pr * dr + pi * di)) * inv[r] + T(kInvSqrtPi);
+      const T ti = (T(2) * (pi * dr - pr * di)) * inv[r];
+      const T wr = (tr * dr + ti * di) * inv[r];
+      const T wi = (ti * dr - tr * di) * inv[r];
+      val[r] = (ln.sr * wr - ln.si * wi) - ln.swc;
+    }
   }
 };
 
-// accumulate one staged line block into this thread's frequency: eight
-// interleaved partial sums (lines l = k mod 8), added as a tree, keep the
-// float32 rounding error of a block near that of the TPU kernel's 8-row
-// accumulator and give the adds eight independent chains.  NP = 3 keeps
-// one set per polarization, selected by the line's index in pol (the
-// selects keep the partials in registers: no dynamic register index).
-template <typename T, int NP, typename W>
+// add this group's 32 staged lines (records at sh) into the sums bs of
+// this thread's kR frequencies: with the four groups, four chains of 32
+// lines per block and frequency.  [wlo, whi] spans the warp's frequencies.
+template <typename T, typename W>
 __device__ __forceinline__ void block_sum(const T* __restrict__ sh,
-                                          const int* __restrict__ pol, int tl,
-                                          T fv, const W& wofz, T (&acc)[NP]) {
-  const T* f0 = sh;
-  const T* igd = sh + tl;
-  const T* zi = sh + 2 * tl;
-  const T* sr = sh + 3 * tl;
-  const T* si = sh + 4 * tl;
-  const T* cut = sh + 5 * tl;
-  const T* swc = sh + 6 * tl;
-  T part[NP][8];
+                                          const T (&fv)[kR], T wlo, T whi,
+                                          const W& term, T (&bs)[kR]) {
 #pragma unroll
-  for (int q = 0; q < NP; ++q) {
+  for (int r = 0; r < kR; ++r) bs[r] = T(0);
+#pragma unroll 2
+  for (int l = 0; l < kGroupLines; ++l) {
+    const Line<T> ln = load_line(sh + l * kRec);
+    // fl(f - f0) is monotone in f, so a window that misses both ends of
+    // the warp's range misses every frequency in it
+    if (wlo - ln.f0 > ln.cut || ln.f0 - whi > ln.cut) continue;
+    T df[kR], zr[kR], val[kR];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) part[q][k] = T(0);
-  }
-  for (int l0 = 0; l0 < tl; l0 += 8) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int l = l0 + k;
-      if (l < tl) {
-        const T df = fv - f0[l];
-        T wr, wi;
-        wofz(igd[l] * df, zi[l], wr, wi);
-        const T val = (sr[l] * wr - si[l] * wi) - swc[l];
-        const T v = tabs(df) <= cut[l] ? val : T(0);
-        if constexpr (NP == 1) {
-          part[0][k] += v;
-        } else {
-          const int p = pol[l];
-#pragma unroll
-          for (int q = 0; q < NP; ++q) part[q][k] += p == q ? v : T(0);
-        }
-      }
+    for (int r = 0; r < kR; ++r) {
+      df[r] = fv[r] - ln.f0;
+      zr[r] = ln.igd * df[r];
     }
-  }
+    term(zr, ln, val);
 #pragma unroll
-  for (int q = 0; q < NP; ++q) {
-    acc[q] += ((part[q][0] + part[q][1]) + (part[q][2] + part[q][3])) +
-              ((part[q][4] + part[q][5]) + (part[q][6] + part[q][7]));
+    for (int r = 0; r < kR; ++r) {
+      if (fabs(df[r]) <= ln.cut) bs[r] += val[r];
+    }
   }
 }
 
-// grid (nf, Z), block tf threads.  f [nf*tf]; lines [Z, 7, nl*tl] as
-// (f0, inv_gd, z_imag, s_re, s_im, cutoff, swc); ext [Z, 4, nl] as
-// (f0_min, f0_max, igd_min, zi_min); blkidx [Z, nf, nl]; nvisit [Z, nf];
-// wcoef [n+1]; NP = 1: out [Z, nf*tf] (pol and tab unused).  NP = 3:
-// pol [nl*tl] in 0..2, tab [Z, 3, 7], out [Z, 7, nf*tf].
+// NP = 1: out[z, f] = v[0].  NP = 3: out[z, c, f] = sum_p tab[z, p, c] v[p]
+// (21 table values per level, read through the read-only cache)
 template <typename T, int NP>
-__global__ void voigt_sum_kernel(const T* __restrict__ f,
-                                 const T* __restrict__ lines,
-                                 const T* __restrict__ ext,
-                                 const int* __restrict__ blkidx,
-                                 const int* __restrict__ nvisit,
-                                 const T* __restrict__ wcoef,
-                                 const int* __restrict__ pol,
-                                 const T* __restrict__ tab,
-                                 T* __restrict__ out, int nf, int nl, int tl,
-                                 int nweid) {
+__device__ __forceinline__ void store_out(const T (&v)[NP], const T* __restrict__ tab,
+                                          T* __restrict__ out, int z, int tile,
+                                          int nf, int i) {
+  const long fcount = static_cast<long>(nf) * kTF;
+  const long fi = static_cast<long>(tile) * kTF + i;
+  if constexpr (NP == 1) {
+    out[z * fcount + fi] = v[0];
+  } else {
+    const T* tz = tab + static_cast<long>(z) * 3 * 7;
+#pragma unroll
+    for (int c = 0; c < 7; ++c) {
+      out[(static_cast<long>(z) * 7 + c) * fcount + fi] =
+          (__ldg(tz + c) * v[0] + __ldg(tz + 7 + c) * v[1]) + __ldg(tz + 14 + c) * v[2];
+    }
+  }
+}
+
+// grid (Z * nf * split), kThreads threads.  f [nf*kTF]; lines [Z, nl*kTL,
+// kRec] records; ext [Z, 4, nl] as (f0_min, f0_max, igd_min, zi_min);
+// blkidx [Z, nf, nl]; nvisit [Z, nf]; wcoef [nweid + 1]; NP = 3: blkpol
+// [nl] in 0..2 and tab [Z, 3, 7].  Block u takes chunk s = u % split of
+// row (z, tile) = u / split: visits [s nv / split, (s + 1) nv / split).
+// split = 1 writes out [Z, nf*kTF] (NP = 1) or [Z, 7, nf*kTF] (NP = 3);
+// split > 1 writes the chunk's sums to part [Z * nf * split, NP, kTF].
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 1)
+voigt_sum_kernel(const T* __restrict__ f, const T* __restrict__ lines,
+                 const T* __restrict__ ext, const int* __restrict__ blkidx,
+                 const int* __restrict__ nvisit, const T* __restrict__ wcoef,
+                 const int* __restrict__ blkpol, const T* __restrict__ tab,
+                 T* __restrict__ part, T* __restrict__ out, int nf, int nl,
+                 int nweid, int split) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kAsymTerms = kF32 ? 3 : 4;
   constexpr int kMidTerms = kF32 ? 6 : 8;
+  constexpr int kWeid = kF32 ? 16 : 24;  // Weideman order, weideman_order()
+  constexpr int kBlockElems = kTL * kRec;
+  constexpr int kChunks = kBlockElems * static_cast<int>(sizeof(T)) / 16;
+  constexpr int kPerChunk = 16 / static_cast<int>(sizeof(T));
   const T mid_gate = T(2.0 * (kF32 ? 36.0 : 150.0));
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sh = reinterpret_cast<T*>(smem);  // [7][tl] line columns
-  T* wc = sh + 7 * tl;                 // [nweid + 1] Weideman table
-  int* shp = reinterpret_cast<int*>(wc + nweid + 1);  // NP = 3: [tl]
+  T* ring = reinterpret_cast<T*>(smem);  // [kStages][kTL][kRec]
+  T* wc = ring + kStages * kBlockElems;  // [nweid + 1] Weideman table
+  T* red = ring;  // after the loop: [kGroups][NP][kTF], over the ring
+  static_assert(kGroups * NP * kTF <= kStages * kBlockElems, "red fits the ring");
 
-  const int tile = blockIdx.x;
-  const int z = blockIdx.y;
-  const int tf = blockDim.x;
+  const int unit = blockIdx.x;
+  const int s = unit % split;
+  const int row = unit / split;
+  const int z = row / nf;
+  const int tile = row % nf;
   const int tid = threadIdx.x;
-  const long lp = static_cast<long>(nl) * tl;
-  const T* lz = lines + static_cast<long>(z) * 7 * lp;
+  const int g = tid / (kTF / kR);  // line group
+  const int q = tid % (kTF / kR);  // frequency quad in the tile
+  const long lp = static_cast<long>(nl) * kTL;
+  const T* lz = lines + static_cast<long>(z) * lp * kRec;
   const T* ez = ext + static_cast<long>(z) * 4 * nl;
-  const long t0 = static_cast<long>(tile) * tf;
-
-  for (int i = tid; i <= nweid; i += tf) wc[i] = wcoef[i];
-  const T fv = f[t0 + tid];
-  const T t_lo = f[t0];
-  const T t_hi = f[t0 + tf - 1];
-  const long row = static_cast<long>(z) * nf + tile;
+  const long t0 = static_cast<long>(tile) * kTF;
+  const int* bl = blkidx + static_cast<long>(row) * nl;
   const int nv = nvisit[row];
-  const int* bl = blkidx + row * nl;
+  const int j0 = static_cast<int>(static_cast<long>(s) * nv / split);
+  const int j1 = static_cast<int>(static_cast<long>(s + 1) * nv / split);
 
-  T acc[NP];
+  auto stage = [&](int j, int buf) {
+    const T* src = lz + static_cast<long>(bl[j]) * kBlockElems;
+    T* dst = ring + buf * kBlockElems;
+    for (int c = tid; c < kChunks; c += kThreads) {
+      cp_async16(dst + c * kPerChunk, src + c * kPerChunk);
+    }
+  };
 #pragma unroll
-  for (int q = 0; q < NP; ++q) acc[q] = T(0);
-  for (int j = 0; j < nv; ++j) {
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (j0 + k < j1) stage(j0 + k, k);
+    cp_async_commit();
+  }
+
+  for (int i = tid; i <= nweid; i += kThreads) wc[i] = wcoef[i];
+  T fv[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) fv[r] = f[t0 + q * kR + r];
+  // the warp's frequency range, for skipping lines whose window misses it
+  T wlo = fv[0], whi = fv[0];
+#pragma unroll
+  for (int r = 1; r < kR; ++r) {
+    wlo = tmin(wlo, fv[r]);
+    whi = tmax(whi, fv[r]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    wlo = tmin(wlo, __shfl_xor_sync(0xffffffffu, wlo, o));
+    whi = tmax(whi, __shfl_xor_sync(0xffffffffu, whi, o));
+  }
+  const T t_lo = f[t0];
+  const T t_hi = f[t0 + kTF - 1];
+
+  T acc[NP][kR];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[p][r] = T(0);
+  }
+  for (int j = j0; j < j1; ++j) {
+    const int i = j - j0;
+    __syncthreads();  // the buffer refilled below was consumed at j - 1
+    if (j + kStages - 1 < j1) stage(j + kStages - 1, (i + kStages - 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this thread's copies of block j landed
+    __syncthreads();               // and every other thread's
+    const T* sh = ring + (i % kStages) * kBlockElems + g * kGroupLines * kRec;
     const int jb = bl[j];
-    __syncthreads();  // the previous block's columns are consumed
-    for (int i = tid; i < 7 * tl; i += tf) {
-      const int c = i / tl;
-      sh[i] = lz[c * lp + static_cast<long>(jb) * tl + (i - c * tl)];
-    }
-    if constexpr (NP > 1) {
-      for (int i = tid; i < tl; i += tf) shp[i] = pol[static_cast<long>(jb) * tl + i];
-    }
-    __syncthreads();
     // |z|^2 >= (igd_min gap)^2 + zi_min^2 over the whole (tile, block)
     const T gap = tmax(tmax(ez[jb] - t_hi, t_lo - ez[nl + jb]), T(0));
     const T gmin = mul_rn(ez[2 * nl + jb], gap);
     const T zmin = ez[3 * nl + jb];
     const T bound2 = mul_rn(gmin, gmin) + mul_rn(zmin, zmin);
+    T bs[kR];
     if (bound2 > T(2.0 * kDeepR2)) {
-      block_sum(sh, shp, tl, fv, Deep<T>{}, acc);
+      block_sum(sh, fv, wlo, whi, Deep<T>{}, bs);
     } else if (bound2 > T(2.0 * kAsymR2)) {
-      block_sum(sh, shp, tl, fv, Series<T, kAsymTerms>{}, acc);
+      block_sum(sh, fv, wlo, whi, Series<T, kAsymTerms>{}, bs);
     } else if (bound2 > mid_gate) {
-      block_sum(sh, shp, tl, fv, Series<T, kMidTerms>{}, acc);
+      block_sum(sh, fv, wlo, whi, Series<T, kMidTerms>{}, bs);
     } else {
-      block_sum(sh, shp, tl, fv, Parts<T, kAsymTerms>{wc, nweid}, acc);
+      block_sum(sh, fv, wlo, whi, Parts<T, kAsymTerms, kWeid>{wc}, bs);
     }
-  }
-  if constexpr (NP == 1) {
-    out[row * tf + tid] = acc[0];
-  } else {
-    // out[z, c] = sum_p tab[z, p, c] acc[p]; the table is 21 values per
-    // level, read through the read-only cache
-    const T* tz = tab + static_cast<long>(z) * 3 * 7;
-    const long fcount = static_cast<long>(nf) * tf;
+    if constexpr (NP == 1) {
 #pragma unroll
-    for (int c = 0; c < 7; ++c) {
-      const T v = (__ldg(tz + c) * acc[0] + __ldg(tz + 7 + c) * acc[1]) +
-                  __ldg(tz + 14 + c) * acc[2];
-      out[(static_cast<long>(z) * 7 + c) * fcount + t0 + tid] = v;
+      for (int r = 0; r < kR; ++r) acc[0][r] += bs[r];
+    } else {
+      // one polarization per block; the selects keep acc in registers
+      const int pb = __ldg(blkpol + jb);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) acc[p][r] += pb == p ? bs[r] : T(0);
+      }
     }
   }
+
+  // the groups' sums, added in a fixed order: ((g0 + g1) + (g2 + g3))
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) red[(g * NP + p) * kTF + q * kR + r] = acc[p][r];
+  }
+  __syncthreads();
+  T v[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const T* rp = red + p * kTF + tid;
+    v[p] = (rp[0] + rp[NP * kTF]) + (rp[2 * NP * kTF] + rp[3 * NP * kTF]);
+  }
+  if (split == 1) {
+    store_out<T, NP>(v, tab, out, z, tile, nf, tid);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) part[(static_cast<long>(unit) * NP + p) * kTF + tid] = v[p];
+  }
+}
+
+// grid (Z * nf), kTF threads: the chunks' sums of each (level, tile) in
+// chunk order, then the output as in voigt_sum_kernel
+template <typename T, int NP>
+__global__ void __launch_bounds__(kTF)
+combine_kernel(const T* __restrict__ part, const T* __restrict__ tab,
+               T* __restrict__ out, int nf, int split) {
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  T v[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const T* pp = part + (static_cast<long>(row) * split * NP + p) * kTF + tid;
+    T a = pp[0];
+    for (int s = 1; s < split; ++s) a += pp[static_cast<long>(s) * NP * kTF];
+    v[p] = a;
+  }
+  store_out<T, NP>(v, tab, out, row / nf, row % nf, nf, tid);
 }
 
 template <typename T, int NP>
 int launch(const void* f, const void* lines, const void* ext,
            const void* blkidx, const void* nvisit, const void* wcoef,
-           const void* pol, const void* tab, void* out, int Z, int nf,
-           int nl, int tl, int tf, int nweid, void* stream) {
-  const dim3 grid(nf, Z);
-  const size_t smem = static_cast<size_t>(7 * tl + nweid + 1) * sizeof(T) +
-                      (NP > 1 ? static_cast<size_t>(tl) * sizeof(int) : 0);
-  voigt_sum_kernel<T, NP><<<grid, tf, smem, static_cast<cudaStream_t>(stream)>>>(
+           const void* blkpol, const void* tab, void* part, void* out, int Z,
+           int nf, int nl, int nweid, int split, void* stream) {
+  if (nweid != (sizeof(T) == 4 ? 16 : 24)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const size_t smem = (static_cast<size_t>(kStages) * kTL * kRec + nweid + 1) * sizeof(T);
+  const unsigned units = static_cast<unsigned>(Z) * nf * split;
+  voigt_sum_kernel<T, NP><<<units, kThreads, smem, st>>>(
       static_cast<const T*>(f), static_cast<const T*>(lines),
       static_cast<const T*>(ext), static_cast<const int*>(blkidx),
       static_cast<const int*>(nvisit), static_cast<const T*>(wcoef),
-      static_cast<const int*>(pol), static_cast<const T*>(tab),
-      static_cast<T*>(out), nf, nl, tl, nweid);
+      static_cast<const int*>(blkpol), static_cast<const T*>(tab),
+      static_cast<T*>(part), static_cast<T*>(out), nf, nl, nweid, split);
+  if (split > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    combine_kernel<T, NP><<<static_cast<unsigned>(Z) * nf, kTF, 0, st>>>(
+        static_cast<const T*>(part), static_cast<const T*>(tab),
+        static_cast<T*>(out), nf, split);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int voigt_sum_f32(const void* f, const void* lines, const void* ext,
-                             const void* blkidx, const void* nvisit,
-                             const void* wcoef, void* out, int Z, int nf,
-                             int nl, int tl, int tf, int nweid, void* stream) {
-  return launch<float, 1>(f, lines, ext, blkidx, nvisit, wcoef, nullptr,
-                          nullptr, out, Z, nf, nl, tl, tf, nweid, stream);
-}
+#define VOIGT_ENTRY(name, T, NP)                                              \
+  extern "C" int name(const void* f, const void* lines, const void* ext,     \
+                      const void* blkidx, const void* nvisit,                \
+                      const void* wcoef, const void* blkpol, const void* tab, \
+                      void* part, void* out, int Z, int nf, int nl,          \
+                      int nweid, int split, void* stream) {                  \
+    return launch<T, NP>(f, lines, ext, blkidx, nvisit, wcoef, blkpol, tab,  \
+                         part, out, Z, nf, nl, nweid, split, stream);        \
+  }
 
-extern "C" int voigt_sum_f64(const void* f, const void* lines, const void* ext,
-                             const void* blkidx, const void* nvisit,
-                             const void* wcoef, void* out, int Z, int nf,
-                             int nl, int tl, int tf, int nweid, void* stream) {
-  return launch<double, 1>(f, lines, ext, blkidx, nvisit, wcoef, nullptr,
-                           nullptr, out, Z, nf, nl, tl, tf, nweid, stream);
-}
-
-extern "C" int voigt_sum_pol_f32(const void* f, const void* lines,
-                                 const void* ext, const void* blkidx,
-                                 const void* nvisit, const void* wcoef,
-                                 const void* pol, const void* tab, void* out,
-                                 int Z, int nf, int nl, int tl, int tf,
-                                 int nweid, void* stream) {
-  return launch<float, 3>(f, lines, ext, blkidx, nvisit, wcoef, pol, tab, out,
-                          Z, nf, nl, tl, tf, nweid, stream);
-}
-
-extern "C" int voigt_sum_pol_f64(const void* f, const void* lines,
-                                 const void* ext, const void* blkidx,
-                                 const void* nvisit, const void* wcoef,
-                                 const void* pol, const void* tab, void* out,
-                                 int Z, int nf, int nl, int tl, int tf,
-                                 int nweid, void* stream) {
-  return launch<double, 3>(f, lines, ext, blkidx, nvisit, wcoef, pol, tab,
-                           out, Z, nf, nl, tl, tf, nweid, stream);
-}
+VOIGT_ENTRY(voigt_sum_f32, float, 1)
+VOIGT_ENTRY(voigt_sum_f64, double, 1)
+VOIGT_ENTRY(voigt_sum_pol_f32, float, 3)
+VOIGT_ENTRY(voigt_sum_pol_f64, double, 3)

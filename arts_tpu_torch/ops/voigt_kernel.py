@@ -16,15 +16,19 @@ sharing one w(z) per (line, frequency) across the 7 components.
 
 Around the kernel, in tensor code on the device:
   * lines are padded to whole blocks of tl (padded lines: z_imag = 1,
-    cutoff = -1, so they never land inside a window) and frequencies to
-    whole tiles of tf (repeating the last frequency);
+    cutoff = -1 and zero strength, so they never land inside a window) and
+    frequencies to whole tiles of tf (repeating the last frequency); the
+    polarized form pads each polarization's lines to whole blocks, so that
+    every block holds one polarization (blkpol [nl]);
+  * the kernel reads each block's lines as 8-wide records (REC_COLS);
   * `_classify_visits` marks the (level, tile, block) pairs whose cutoff
     windows meet the tile; `_multipole_far` takes the provably far pairs
     out of that set and evaluates them as a 12-term pole expansion;
   * `_visit_lists` turns the marks into per-(level, tile) lists of visited
     blocks, which the kernel walks.
 The far field of the polarized form carries the 7 components: each
-line's moments are weighted by its [7] row before the block sums.
+line's moments are weighted by its [7] row (its block's polarization's)
+before the block sums.
 
 Per (tile, block) the kernel chooses the cheapest valid w(z) tier from the
 lower bound |z|^2 >= (igd_min gap)^2 + zi_min^2: deep (1-term Laurent),
@@ -38,6 +42,7 @@ count), sub-tiles (nsub), the coarse-grid far field, and the approximate
 reciprocal with its Newton step (the card divides exactly).
 """
 
+import ctypes
 import math
 
 import torch
@@ -50,12 +55,15 @@ _ASYM_R2 = 512.0
 _DEEP_R2 = 1.0e6
 _MP_TERMS = 12
 _MP_KAPPA = 3.5
-TF, TL = 256, 128  # frequency tile (threads per block) and line block
+TF, TL = 256, 128  # frequency tile and line block (fixed in csrc/voigt_sum.cu)
 # Laurent coefficients c_k = (2k-1)!!/2^k of w ~ i/(sqrt(pi) z) sum c_k z^-2k
 _LAURENT_C = (1.0, 0.5, 0.75, 15.0 / 8.0, 105.0 / 16.0, 945.0 / 32.0,
               10395.0 / 64.0, 135135.0 / 128.0)
 
 LINE_COLS = ("f0", "inv_gd", "z_imag", "s_re", "s_im", "cutoff", "swc")
+# the kernel's line record: two 16-byte halves in float32
+REC_COLS = ("f0", "inv_gd", "z_imag", "cutoff", "s_re", "s_im", "swc", "pad")
+_F0, _IGD, _ZI, _CUT, _SR, _SI, _SWC = range(7)
 EXT_COLS = ("f0_min", "f0_max", "igd_min", "zi_min")
 
 
@@ -71,8 +79,10 @@ def weideman_order(dtype):
 
 def pair_flops(dtype):
     """Floating-point operations per (line, frequency) pair of each tier,
-    counted from csrc/voigt_sum.cu (add, multiply and divide count 1, a
-    fused multiply-add 2), including the 7 shared by every tier (the
+    counted from the tier arithmetic of the plain version below (add,
+    multiply and divide count 1, a fused multiply-add 2): the work, which
+    the kernel may do in fewer instructions.  Includes the 7 shared by
+    every tier (the
     frequency offset, z, the strength product, the cutoff subtraction and
     the accumulation).  "weideman_series" is a pair of a Weideman-tier
     block whose own |z|^2 > 512 takes the series instead of the rational.
@@ -228,6 +238,9 @@ def _multipole_far(f_flat, t_lo, t_hi, f0, igd, zi, sr, si, cutoff, swc,
     return far, (mp[..., 0] if pw is None else mp)
 
 
+_PAD_FILL = dict(z_imag=1.0, cutoff=-1.0)
+
+
 def _pad_lines(nl, tl, *cols):
     """Pad [Z, L] line columns (f0, inv_gd, z_imag, s_re, s_im, cutoff,
     swc) to nl*tl lines: z_imag 1 keeps the block minima meaningful,
@@ -236,11 +249,37 @@ def _pad_lines(nl, tl, *cols):
     pad = nl * tl - L
     if not pad:
         return cols
-    fill = dict(z_imag=1.0, cutoff=-1.0)
     return tuple(
-        torch.nn.functional.pad(c, (0, pad), value=fill.get(name, 0.0))
+        torch.nn.functional.pad(c, (0, pad), value=_PAD_FILL.get(name, 0.0))
         for name, c in zip(LINE_COLS, cols)
     )
+
+
+def _group_lines(polidx, tl, cols):
+    """Polarization-pure blocks: ([Z, nl*tl] line columns, blkpol [nl]
+    int32).  Each polarization's lines, in their given order, are padded
+    as _pad_lines pads to whole blocks of tl, pi first; a polarization
+    without lines has no block."""
+    c = torch.bincount(polidx.clamp(-1, 3) + 1, minlength=5).tolist()
+    if c[0] or c[4]:
+        raise ValueError("voigt_inputs: polarization indices must be 0, 1 or 2")
+    counts = c[1:4]
+    nb = [-(-n // tl) for n in counts]
+    dev = polidx.device
+    order = torch.argsort(polidx, stable=True)
+    p_sorted = polidx[order]
+    start = torch.tensor([0, counts[0], counts[0] + counts[1]], device=dev)
+    base = torch.tensor([0, nb[0] * tl, (nb[0] + nb[1]) * tl], device=dev)
+    dest = torch.arange(order.shape[0], device=dev) - start[p_sorted] + base[p_sorted]
+    Z, Lp = cols[0].shape[0], sum(nb) * tl
+    out = []
+    for name, col in zip(LINE_COLS, cols):
+        g = torch.full((Z, Lp), _PAD_FILL.get(name, 0.0), dtype=col.dtype, device=dev)
+        g[:, dest] = col[:, order]
+        out.append(g)
+    blkpol = torch.repeat_interleave(torch.arange(3, dtype=torch.int32, device=dev),
+                                     torch.tensor(nb, device=dev))
+    return tuple(out), blkpol.contiguous()
 
 
 def _classify_visits(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, swc,
@@ -283,37 +322,46 @@ def weideman_table(n, dtype, device):
     return torch.tensor((Lw,) + a, dtype=dtype, device=device)
 
 
+def _line_records(cols):
+    """[Z, L, 8] kernel records (REC_COLS) from the LINE_COLS columns."""
+    f0, igd, zi, sr, si, cut, swc = cols
+    return torch.stack([f0, igd, zi, cut, sr, si, swc, torch.zeros_like(f0)], -1).contiguous()
+
+
 def voigt_inputs(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
                  wcut_im, polidx=None, table=None):
     """The kernel's inputs (f, lines, ext, blkidx, nvisit, wcoef) and the
-    multipole far field for [Z, L] line columns on an [F] grid.
+    multipole far field for [Z, L] line columns on an [F] grid; lines are
+    [Z, nl*tl, 8] records (REC_COLS).
 
     With a polarization index per line, polidx [L] in 0..2, and per-level
-    weight rows table [Z, 3, 7], the inputs also carry (polidx padded to
-    whole blocks as int32, table) and the far field has 7 components."""
+    weight rows table [Z, 3, 7], the lines are grouped into
+    polarization-pure blocks, the inputs also carry (blkpol [nl] int32,
+    the polarization of each block, and table) and the far field has 7
+    components."""
     tf, tl = TF, TL
     F = f_grid.shape[0]
     L = f0.shape[-1]
     nf = -(-F // tf)
-    nl = -(-L // tl)
     if nf * tf > F:
         f_grid = torch.cat([f_grid, f_grid[-1:].expand(nf * tf - F)])
     swc = s_re * wcut_re - s_im * wcut_im
-    cols = _pad_lines(nl, tl, f0, inv_gd, z_imag, s_re, s_im, cutoff, swc)
-    pol = pw = None
-    if polidx is not None:
-        if L and not (0 <= int(polidx.min()) and int(polidx.max()) <= 2):
-            raise ValueError("voigt_inputs: polarization indices must be 0, 1 or 2")
-        pol = torch.nn.functional.pad(polidx.to(torch.int32), (0, nl * tl - L))
+    cols = (f0, inv_gd, z_imag, s_re, s_im, cutoff, swc)
+    blkpol = pw = None
+    if polidx is None:
+        nl = -(-L // tl)
+        cols = _pad_lines(nl, tl, *cols)
+    else:
+        cols, blkpol = _group_lines(polidx, tl, cols)
+        nl = blkpol.shape[0]
         table = table.to(f_grid.dtype).contiguous()
-        pw = table[:, pol.long()]  # [Z, nl*tl, 7]
+        pw = table[:, blkpol.long().repeat_interleave(tl)]  # [Z, nl*tl, 7]
     visit, mp, ext = _classify_visits(f_grid, *cols, nf, tf, nl, tl, pw)
     blkidx, nvisit = _visit_lists(visit)
-    lines = torch.stack(cols, 1).contiguous()  # [Z, 7, nl*tl]
     wcoef = weideman_table(weideman_order(f_grid.dtype), f_grid.dtype, f_grid.device)
-    args = (f_grid.contiguous(), lines, ext, blkidx, nvisit, wcoef)
-    if pol is not None:
-        args += (pol.contiguous(), table)
+    args = (f_grid.contiguous(), _line_records(cols), ext, blkidx, nvisit, wcoef)
+    if blkpol is not None:
+        args += (blkpol, table)
     return args, mp
 
 
@@ -357,75 +405,86 @@ def voigt_sum_pol(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(name, f, lines, ext, blkidx, nvisit, wcoef, smem_extra=0):
-    """Raise unless the kernel inputs are consistent CUDA tensors; returns
-    (Z, nf, nl, tl, tf, n)."""
+def _check_inputs(name, f, lines, ext, blkidx, nvisit, wcoef):
+    """Raise unless the kernel inputs are consistent CUDA tensors in the
+    kernel's tiling (TF frequencies x TL lines); returns (Z, nf, nl, n)."""
     dev, dt = f.device, f.dtype
-    Z, nc, Lp = lines.shape
+    Z, Lp, nc = lines.shape
     nl = ext.shape[-1]
     nf = nvisit.shape[-1]
-    tf = f.shape[0] // nf
-    tl = Lp // nl
     n = wcoef.shape[0] - 1
     if dev.type != "cuda" or dt not in (torch.float32, torch.float64):
         raise ValueError(f"{name}: unsupported {dt} on {dev}")
-    if nc != 7 or tl * nl != Lp or tf * nf != f.shape[0] or not 0 < tf <= 1024:
-        raise ValueError(f"{name}: inconsistent tile or block shapes")
-    if (7 * tl + n + 1) * f.element_size() + smem_extra * tl > 48 * 1024:
-        raise ValueError(f"{name}: line block tl={tl} exceeds shared memory")
+    if nc != len(REC_COLS) or Lp != nl * TL or f.shape[0] != nf * TF:
+        raise ValueError(f"{name}: the kernel takes tiles of {TF} frequencies and "
+                         f"blocks of {TL} line records")
+    if n != weideman_order(dt):
+        raise ValueError(f"{name}: the kernel's Weideman order is {weideman_order(dt)}, "
+                         f"got a table of order {n}")
     _cuda.check("f", f, dev, dt)
-    _cuda.check("lines", lines, dev, dt, (Z, 7, Lp))
+    _cuda.check("lines", lines, dev, dt, (Z, Lp, nc))
     _cuda.check("ext", ext, dev, dt, (Z, 4, nl))
     _cuda.check("blkidx", blkidx, dev, torch.int32, (Z, nf, nl))
     _cuda.check("nvisit", nvisit, dev, torch.int32, (Z, nf))
     _cuda.check("wcoef", wcoef, dev, dt)
-    return Z, nf, nl, tl, tf, n
+    return Z, nf, nl, n
 
 
-def voigt_kernel(f, lines, ext, blkidx, nvisit, wcoef):
-    """[Z, nf*tf] contraction over each (level, tile)'s visited blocks.
+def default_split(nl):
+    """Chunks per (level, tile) visit list, about sqrt(nl) and at most 16.
+    A list holds at most nl blocks, and each chunk costs a fixed epilogue
+    and a partial sum: sqrt balances that cost against the time of the
+    longest chunk, the tail of the launch."""
+    return max(1, min(16, round(math.sqrt(nl))))
 
-    f [nf*tf]; lines [Z, 7, nl*tl] (LINE_COLS); ext [Z, 4, nl] (EXT_COLS);
-    blkidx [Z, nf, nl] and nvisit [Z, nf] int32; wcoef [n+1].  On a CUDA
-    tensor this launches csrc/voigt_sum.cu (one block per (tile, level),
-    one thread per frequency); on a CPU tensor it runs the plain version.
-    """
-    if f.device.type == "cpu":
-        return voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef)
-    Z, nf, nl, tl, tf, n = _check_inputs("voigt_kernel", f, lines, ext, blkidx,
-                                         nvisit, wcoef)
-    out = torch.empty((Z, nf * tf), dtype=f.dtype, device=f.device)
+
+def _launch(name, npol, f, lines, ext, blkidx, nvisit, wcoef, blkpol, table, split):
+    Z, nf, nl, n = _check_inputs(name, f, lines, ext, blkidx, nvisit, wcoef)
+    split = default_split(nl) if split is None else int(split)
+    if split < 1:
+        raise ValueError(f"{name}: split must be >= 1, got {split}")
+    shape = (Z, nf * TF) if npol == 1 else (Z, 7, nf * TF)
+    out = torch.empty(shape, dtype=f.dtype, device=f.device)
+    part = (torch.empty((Z * nf * split, npol, TF), dtype=f.dtype, device=f.device)
+            if split > 1 else out)
     if Z and nf:
+        none = ctypes.c_void_p()
         _cuda.launch(
-            "voigt_sum", f.dtype, _cuda.ptr(f), _cuda.ptr(lines), _cuda.ptr(ext),
+            name, f.dtype, _cuda.ptr(f), _cuda.ptr(lines), _cuda.ptr(ext),
             _cuda.ptr(blkidx), _cuda.ptr(nvisit), _cuda.ptr(wcoef),
-            _cuda.ptr(out), Z, nf, nl, tl, tf, n,
+            none if blkpol is None else _cuda.ptr(blkpol),
+            none if table is None else _cuda.ptr(table),
+            _cuda.ptr(part), _cuda.ptr(out), Z, nf, nl, n, split,
         )
     return out
 
 
-def voigt_kernel_pol(f, lines, ext, blkidx, nvisit, wcoef, polidx, table):
+def voigt_kernel(f, lines, ext, blkidx, nvisit, wcoef, split=None):
+    """[Z, nf*tf] contraction over each (level, tile)'s visited blocks.
+
+    f [nf*tf]; lines [Z, nl*tl, 8] (REC_COLS); ext [Z, 4, nl] (EXT_COLS);
+    blkidx [Z, nf, nl] and nvisit [Z, nf] int32; wcoef [n+1].  On a CUDA
+    tensor this launches csrc/voigt_sum.cu, each (level, tile)'s visit
+    list cut into `split` chunks (default_split(nl) when None); on a CPU
+    tensor it runs the plain version.
+    """
+    if f.device.type == "cpu":
+        return voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef)
+    return _launch("voigt_sum", 1, f, lines, ext, blkidx, nvisit, wcoef, None, None, split)
+
+
+def voigt_kernel_pol(f, lines, ext, blkidx, nvisit, wcoef, blkpol, table, split=None):
     """[Z, 7, nf*tf] polarized contraction: voigt_kernel's inputs plus the
-    per-line polarization index polidx [nl*tl] int32 and the per-level
+    polarization of each block, blkpol [nl] int32, and the per-level
     weight rows table [Z, 3, 7].  On a CUDA tensor this launches the
     polarized instance of csrc/voigt_sum.cu; on a CPU tensor it runs the
     plain version."""
     if f.device.type == "cpu":
-        return voigt_kernel_pol_plain(f, lines, ext, blkidx, nvisit, wcoef,
-                                      polidx, table)
-    Z, nf, nl, tl, tf, n = _check_inputs("voigt_kernel_pol", f, lines, ext,
-                                         blkidx, nvisit, wcoef, smem_extra=4)
-    _cuda.check("polidx", polidx, f.device, torch.int32, (nl * tl,))
-    _cuda.check("table", table, f.device, f.dtype, (Z, 3, 7))
-    out = torch.empty((Z, 7, nf * tf), dtype=f.dtype, device=f.device)
-    if Z and nf:
-        _cuda.launch(
-            "voigt_sum_pol", f.dtype, _cuda.ptr(f), _cuda.ptr(lines),
-            _cuda.ptr(ext), _cuda.ptr(blkidx), _cuda.ptr(nvisit),
-            _cuda.ptr(wcoef), _cuda.ptr(polidx), _cuda.ptr(table),
-            _cuda.ptr(out), Z, nf, nl, tl, tf, n,
-        )
-    return out
+        return voigt_kernel_pol_plain(f, lines, ext, blkidx, nvisit, wcoef, blkpol, table)
+    _cuda.check("blkpol", blkpol, f.device, torch.int32, (ext.shape[-1],))
+    _cuda.check("table", table, f.device, f.dtype, (lines.shape[0], 3, 7))
+    return _launch("voigt_sum_pol", 3, f, lines, ext, blkidx, nvisit, wcoef, blkpol, table,
+                   split)
 
 
 _PLAIN_CHUNK = 1 << 24  # (slot, line, frequency) elements per dense chunk
@@ -434,12 +493,12 @@ _PLAIN_CHUNK = 1 << 24  # (slot, line, frequency) elements per dense chunk
 def _pair_chunks(f, lines, ext, blkidx, nvisit):
     """Dense views of the visited (line, frequency) pairs, one level and a
     run of tiles at a time: yields (z, tile slice, tier [nt, S] with 4 =
-    slot not visited, block indices jb [nt, S], line columns
-    [7, nt, S, tl, 1], frequency offsets df [nt, S, tl, tf])."""
+    slot not visited, block indices jb [nt, S], line records
+    [8, nt, S, tl, 1] (REC_COLS), frequency offsets df [nt, S, tl, tf])."""
     Z = lines.shape[0]
     nl = ext.shape[-1]
     nf = nvisit.shape[-1]
-    tl = lines.shape[-1] // nl
+    tl = lines.shape[1] // nl
     tiles = f.view(nf, -1)
     S = int(nvisit.max()) if nvisit.numel() else 0
     if not S:
@@ -461,26 +520,25 @@ def _pair_chunks(f, lines, ext, blkidx, nvisit):
                                torch.where(bound2 > 2.0 * _ASYM_R2, 1,
                                            torch.where(bound2 > 2.0 * mid_r2, 2, 3)))
             tier = torch.where(slot < nvisit[z, ts, None], tier, 4)
-            blk = lines[z].view(7, nl, tl)[:, jb][..., None]  # [7, nt, S, tl, 1]
-            df = tz[:, None, None, :] - blk[0]
+            blk = lines[z].view(nl, tl, -1)[jb].movedim(-1, 0)[..., None]  # [8, nt, S, tl, 1]
+            df = tz[:, None, None, :] - blk[_F0]
             yield z, ts, tier, jb, blk, df
 
 
-def _plain(f, lines, ext, blkidx, nvisit, wcoef, polidx=None, table=None):
+def _plain(f, lines, ext, blkidx, nvisit, wcoef, blkpol=None, table=None):
     """Both kernels' plain version: the same visit lists and tier rule,
-    each tier evaluated densely and selected per block; with polidx and
-    table the terms are summed per polarization and weighted by the
-    level's table rows."""
+    each tier evaluated densely and selected per block; with blkpol and
+    table each block's sum goes to its polarization and the three sums
+    are weighted by the level's table rows."""
     Z = lines.shape[0]
-    nl = ext.shape[-1]
     nf = nvisit.shape[-1]
     tf = f.shape[0] // nf
     _, mid_terms, asym_terms = _tier_params(f.dtype)
     Lw, a = wcoef[0], wcoef[1:].tolist()
-    shape = (Z, nf, tf) if polidx is None else (Z, 7, nf, tf)
+    shape = (Z, nf, tf) if blkpol is None else (Z, 7, nf, tf)
     out = torch.zeros(shape, dtype=f.dtype, device=f.device)
     for z, ts, tier, jb, blk, df in _pair_chunks(f, lines, ext, blkidx, nvisit):
-        _, igd, zi, sr, si, cut, swc = blk
+        igd, zi, cut, sr, si, swc = (blk[i] for i in (_IGD, _ZI, _CUT, _SR, _SI, _SWC))
         zr = igd * df
         zim = zi.expand_as(zr)
         t = tier[..., None, None]
@@ -495,14 +553,15 @@ def _plain(f, lines, ext, blkidx, nvisit, wcoef, polidx=None, table=None):
         vals = (sr * wr - si * wi) - swc
         keep = (t < 4) & (df.abs() <= cut)
         vals = torch.where(keep, vals, torch.zeros_like(vals))
-        if polidx is None:
+        if blkpol is None:
             out[z, ts] = vals.sum((1, 2))
             continue
-        pol = polidx.view(nl, -1)[jb][..., None]  # [nt, S, tl, 1]
-        sums = torch.stack([torch.where(pol == p, vals, torch.zeros_like(vals)).sum((1, 2))
+        bsum = vals.sum(2)  # [nt, S, tf] block sums
+        pol = blkpol[jb][..., None]  # [nt, S, 1]
+        sums = torch.stack([torch.where(pol == p, bsum, torch.zeros_like(bsum)).sum(1)
                             for p in range(3)])  # [3, nt, tf]
         out[z, :, ts] = (table[z][:, :, None, None] * sums[:, None]).sum(0)
-    return out.view(Z, -1) if polidx is None else out.view(Z, 7, -1)
+    return out.view(Z, -1) if blkpol is None else out.view(Z, 7, -1)
 
 
 def voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef):
@@ -510,9 +569,9 @@ def voigt_kernel_plain(f, lines, ext, blkidx, nvisit, wcoef):
     return _plain(f, lines, ext, blkidx, nvisit, wcoef)
 
 
-def voigt_kernel_pol_plain(f, lines, ext, blkidx, nvisit, wcoef, polidx, table):
+def voigt_kernel_pol_plain(f, lines, ext, blkidx, nvisit, wcoef, blkpol, table):
     """The plain PyTorch version of voigt_kernel_pol."""
-    return _plain(f, lines, ext, blkidx, nvisit, wcoef, polidx, table)
+    return _plain(f, lines, ext, blkidx, nvisit, wcoef, blkpol, table)
 
 
 def pair_counts(f, lines, ext, blkidx, nvisit):
@@ -523,10 +582,10 @@ def pair_counts(f, lines, ext, blkidx, nvisit):
     visited = dict.fromkeys(names, 0)
     inwin = dict.fromkeys(names, 0)
     for _, _, tier, _, blk, df in _pair_chunks(f, lines, ext, blkidx, nvisit):
-        zr = blk[1] * df
-        big = zr * zr + blk[2] * blk[2] > _ASYM_R2
+        zr = blk[_IGD] * df
+        big = zr * zr + blk[_ZI] * blk[_ZI] > _ASYM_R2
         t = tier[..., None, None].expand_as(df)
-        inside = df.abs() <= blk[5]
+        inside = df.abs() <= blk[_CUT]
         cls = {
             "deep": t == 0, "asym": t == 1, "mid": t == 2,
             "weideman_series": (t == 3) & big, "weideman": (t == 3) & ~big,

@@ -8,7 +8,10 @@
    and spills from ptxas;
 2. holds the Voigt kernel against its plain PyTorch version on the
    benchmark scene (top, middle and bottom level) and on a
-   Doppler-dominated case that reaches the mid and Weideman tiers;
+   Doppler-dominated case that reaches the mid and Weideman tiers, checks
+   that two float32 runs are bit-identical, and times it at the default
+   split of the visit lists and at SPLITS, beside its bound and ptxas
+   report;
 3. holds the two DISORT kernels against their plain versions at the full
    4096 x 59 x n=8 shape, in float64 and float32-against-float64;
 4. drives the all-sky main path (2048 lines x 4096 frequencies x 60
@@ -21,7 +24,9 @@
    4096 frequencies) at the top, a middle and the bottom level with an
    oblique field, in float64 and float32, then drives its path,
    zeeman_propmat(backend="pallas") over all 60 levels in float32, with
-   the counters set to 0 just before and read just after;
+   the counters set to 0 just before and read just after; at the full
+   shape it checks two float32 runs bit-identical and times the kernel as
+   in 2;
 6. holds the zeeman_mp kernel against its plain version at the full
    [60 levels, 2048 poles, 4096 frequencies] shape, float64 and float32;
 7. runs the Zeeman stage as bench.py defines it: zeeman_propmat_profile
@@ -71,6 +76,8 @@ import torch
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 NQUAD = 16
+# chunks per (level, tile) visit list timed beside the default split
+SPLITS = (1, 2, 4, 8, 16)
 
 
 def log(*args):
@@ -180,15 +187,27 @@ def phase_build():
         f"(nvcc {info.get('seconds', 0.0):.1f} s, cached={info.get('cached')}) -> {info['library']}")
     name = None
     for line in info.get("ptxas", "").splitlines():
-        m = re.search(r"(voigt_sum_kernel|stage1_kernel|stage23_kernel|zeeman_mp_kernel|"
-                      r"fused_eigen_kernel|eigh_jacobi_kernel|eigh_jacobi_local_kernel)"
-                      r"I([fd])(?:Li(\d+)E)?", line)
+        m = re.search(r"(voigt_sum_kernel|combine_kernel|stage1_kernel|stage23_kernel|"
+                      r"zeeman_mp_kernel|fused_eigen_kernel|eigh_jacobi_kernel|"
+                      r"eigh_jacobi_local_kernel)I([fd])(?:Li(\d+)E)?", line)
         if "Compiling entry function" in line and m:
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}" + (
                 f", {m.group(3)}>" if m.group(3) else ">")
         elif name and ("Used" in line or "spill" in line):
-            log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            text = line.split(':', 1)[-1].strip()
+            PTXAS.setdefault(name, []).append(text)
+            log(f"  ptxas {name}: {text}")
     return _cuda
+
+
+# ptxas lines (registers; stack and spills) per kernel instance, from the build
+PTXAS = {}
+
+
+def log_ptxas(*names):
+    for name in names:
+        for text in PTXAS.get(name, ["(not in the ptxas report: a cached build keeps it in _build/ptxas_*.log)"]):
+            log(f"  {name}: {text}")
 
 
 def level_slice(kin, z):
@@ -242,16 +261,25 @@ def phase_voigt(scenes, dev):
     require(tiers["mid"] > 0 and tiers["weideman"] > 0, f"tiers not reached: {tiers}")
 
     kin = kins[torch.float32]
+    require(torch.equal(V.voigt_kernel(*kin), V.voigt_kernel(*kin)),
+            "voigt_sum float32: two runs differ")
     ms = cuda_ms(lambda: V.voigt_kernel(*kin), 20)
+    by_split = {sp: round(cuda_ms(lambda: V.voigt_kernel(*kin, split=sp), 20), 4)
+                for sp in SPLITS}
     plain_ms = cuda_ms(lambda: V.voigt_kernel_plain(*kin), 2)
     counts = V.pair_counts(*kin[:5])
     pf = V.pair_flops(torch.float32)
     flops = sum(counts["in_window"][k] * pf[k] for k in pf)
     out_bytes = kin[1].shape[0] * kin[0].shape[0] * 4
     b_ms, b_by = bound(flops, nbytes(*kin) + out_bytes)
-    log(f"voigt_sum float32, {kin[1].shape[0]} levels: {ms:.3f} ms (plain {plain_ms:.1f} ms); "
+    log(f"voigt_sum float32, {kin[1].shape[0]} levels, {kin[2].shape[-1]} line blocks, "
+        f"{int(kin[4].sum())} visits: {ms:.3f} ms at split "
+        f"{V.default_split(kin[2].shape[-1])} beside bound {b_ms:.4f} ms ({b_by}); "
+        f"by split {by_split}; two runs bit-identical; plain {plain_ms:.1f} ms; "
         f"visited pairs {counts['visited']}; in-window pairs {counts['in_window']}; "
-        f"{flops / 1e9:.2f} GFLOP in window -> bound {b_ms:.4f} ms ({b_by})")
+        f"{flops / 1e9:.2f} GFLOP in window")
+    log_ptxas("voigt_sum_kernel<float, 1>", "voigt_sum_kernel<double, 1>",
+              "combine_kernel<float, 1>")
     return dict(
         name="voigt_sum", route="cuda", source="arts_tpu_torch/csrc/voigt_sum.cu",
         replaces="arts_tpu/ops/voigt_kernel.py:869", max_abs_err=max_abs, ms=ms,
@@ -698,9 +726,10 @@ def phase_differentiable_allsky(scenes, dev, _cuda, reps=3):
 # the oblique field of tests/test_zeeman.py:123, under which all 7
 # propagation-matrix components are nonzero
 OBLIQUE = ([10e-6, -20e-6, 40e-6], 65.0, 30.0)
-# per (line, frequency) pair the polarized kernel adds two selects and
-# adds over the unpolarized one (three partial sets, csrc/voigt_sum.cu);
-# per frequency its epilogue does 7 x (3 multiplies + 2 adds)
+# the polarized kernel's count over the unpolarized one: 2 per (line,
+# frequency) pair for routing each term to its polarization's sum and,
+# per frequency, the epilogue's 7 x (3 multiplies + 2 adds); fixed counts,
+# so that the bound reads the same work whatever kernel implements it
 POL_PAIR_EXTRA, POL_EPILOGUE = 2, 35
 
 
@@ -728,7 +757,7 @@ def phase_zeeman_pol(zin, dev, _cuda, levels=(0, 29, 59)):
                 f"scale; held at rtol {rtol}, atol {atol} * scale)")
             if dt == torch.float32:
                 max_abs = max(max_abs, err)
-    L = int(kin[1].shape[-1])
+    L = int(kin[1].shape[1])
     log(f"voigt_sum_pol inputs: {sum(int(i.numel()) for i in zin[torch.float32]['zcat'].idx)} "
         f"pseudo-lines ({L} padded), max visits per tile {int(kin[4].max())}")
 
@@ -758,16 +787,26 @@ def phase_zeeman_pol(zin, dev, _cuda, levels=(0, 29, 59)):
     args, _ = voigt_sum_pol_args(d["f_grid"], d["zcat"], d["pf"], d["T"], d["P"], d["vmr"],
                                  d["mag"], d["los_za_deg"])
     kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10])
+    require(torch.equal(V.voigt_kernel_pol(*kin), V.voigt_kernel_pol(*kin)),
+            "voigt_sum_pol float32: two runs differ")
     ms = cuda_ms(lambda: V.voigt_kernel_pol(*kin), 10)
+    by_split = {sp: round(cuda_ms(lambda: V.voigt_kernel_pol(*kin, split=sp), 10), 4)
+                for sp in SPLITS}
     plain_ms = cuda_ms(lambda: V.voigt_kernel_pol_plain(*kin), 1)
     counts = V.pair_counts(*kin[:5])
     pf = {k: v + POL_PAIR_EXTRA for k, v in V.pair_flops(torch.float32).items()}
     Z, F = kin[1].shape[0], kin[0].shape[0]
     flops = sum(counts["in_window"][k] * pf[k] for k in pf) + Z * F * POL_EPILOGUE
     b_ms, b_by = bound(flops, nbytes(*kin) + Z * 7 * F * 4)
-    log(f"voigt_sum_pol float32, {Z} levels: {ms:.3f} ms (plain {plain_ms:.1f} ms); "
-        f"visited pairs {counts['visited']}; in-window pairs {counts['in_window']}; "
-        f"{flops / 1e9:.2f} GFLOP in window -> bound {b_ms:.4f} ms ({b_by})")
+    nl = kin[2].shape[-1]
+    log(f"voigt_sum_pol float32, {Z} levels, {nl} line blocks "
+        f"({[int((kin[6] == p).sum()) for p in range(3)]} pi/sigma-/sigma+), "
+        f"{int(kin[4].sum())} visits: {ms:.3f} ms at split {V.default_split(nl)} beside "
+        f"bound {b_ms:.4f} ms ({b_by}); by split {by_split}; two runs bit-identical; "
+        f"plain {plain_ms:.1f} ms; visited pairs {counts['visited']}; in-window pairs "
+        f"{counts['in_window']}; {flops / 1e9:.2f} GFLOP in window")
+    log_ptxas("voigt_sum_kernel<float, 3>", "voigt_sum_kernel<double, 3>",
+              "combine_kernel<float, 3>")
     return dict(
         name="voigt_sum_pol", route="cuda", source="arts_tpu_torch/csrc/voigt_sum.cu",
         replaces="arts_tpu/ops/voigt_kernel.py:975", launches=launches["voigt_sum_pol"],

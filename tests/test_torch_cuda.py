@@ -83,6 +83,60 @@ def test_voigt_pol_kernel_matches_plain(dev, dtype, rtol, atol):
     assert bool(((got - want).abs() <= atol * scale + rtol * want.abs()).all())
 
 
+def _edge_case(dev, dtype, npol):
+    """3 levels, 1000 frequencies (4 tiles, the last padded), 245 lines (not
+    a multiple of 128) at -7..-2 GHz with 4 GHz cutoffs, so the last tile
+    has no visits; npol = 3: 95 sigma+ lines drawn from those below -4.5
+    GHz, the other 150 pi, no sigma-, and a random [3, 7] table per level.
+    Returns voigt_inputs' kernel inputs."""
+    from arts_tpu_torch.ops import voigt_kernel as V
+
+    rng = np.random.default_rng(11)
+    Z, F, L = 3, 1000, 245
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    lev = lambda a: t(a[None] * np.linspace(1.0, 0.6, Z)[:, None])
+    f = np.linspace(-8e9, 8e9, F)
+    f0 = np.sort(rng.uniform(-7e9, -2e9, L))
+    cols = [t(f), t(np.broadcast_to(f0, (Z, L)).copy()), lev(10 ** rng.uniform(-9, -5.4, L)),
+            lev(rng.uniform(0.05, 20.0, L)), lev(rng.uniform(0.1, 1.0, L)),
+            lev(0.05 * rng.normal(size=L)), t(np.full((Z, L), 4e9)),
+            lev(1e-3 * rng.normal(size=L)), lev(1e-3 * rng.normal(size=L))]
+    if npol == 1:
+        kin, _ = V.voigt_inputs(*cols)
+    else:
+        polidx = np.zeros(L, np.int64)
+        polidx[rng.choice(np.flatnonzero(f0 < -4.5e9), 95, replace=False)] = 2
+        kin, _ = V.voigt_inputs(*cols, polidx=torch.as_tensor(polidx, device=dev),
+                                table=t(rng.normal(size=(Z, 3, 7))))
+        assert kin[6].tolist() == [0, 0, 2]
+    nvisit = kin[4]
+    assert bool((nvisit[:, -1] == 0).all()) and bool((nvisit % 3 != 0).any())
+    return kin
+
+
+@pytest.mark.parametrize("split", [1, 3, None])
+@pytest.mark.parametrize("npol, dtype, rtol, atol", [
+    (1, torch.float64, 0.0, 1e-9), (1, torch.float32, 2e-6, 5e-7),
+    (3, torch.float64, 0.0, 1e-12), (3, torch.float32, 2e-5, 2e-6)])
+def test_voigt_kernel_edge_cases_match_plain(dev, npol, dtype, rtol, atol, split):
+    """Both instances against their plain versions, at the tolerances of the
+    bench-shaped tests above, on _edge_case: a partial line block, an empty
+    polarization, a (level, tile) without visits, and visit lists cut into
+    1, 3 (not a divisor of the visit counts) and the default number of
+    chunks; two runs are bit-identical."""
+    from arts_tpu_torch.ops import voigt_kernel as V
+
+    kin = _edge_case(dev, dtype, npol)
+    kernel, plain = ((V.voigt_kernel, V.voigt_kernel_plain) if npol == 1 else
+                     (V.voigt_kernel_pol, V.voigt_kernel_pol_plain))
+    got = kernel(*kin, split=split)
+    assert torch.equal(got, kernel(*kin, split=split))
+    got, want = got.double(), plain(*kin).double()
+    scale = want.abs().max()
+    assert float(scale) > 0
+    assert bool(((got - want).abs() <= atol * scale + rtol * want.abs()).all())
+
+
 @pytest.mark.parametrize("dtype, atol", [(torch.float64, 1e-12), (torch.float32, 2e-6)])
 def test_zeeman_mp_kernel_matches_plain(dev, dtype, atol):
     """The zeeman_mp kernel on the parent poles of a 256-line bench-shaped

@@ -131,7 +131,7 @@ def test_pair_counts_cover_the_visited_blocks():
     args, _ = V.voigt_inputs(f, *(c[None] for c in cols))
     f, lines, ext, blkidx, nvisit, _ = args
     counts = V.pair_counts(f, lines, ext, blkidx, nvisit)
-    tl = lines.shape[-1] // ext.shape[-1]
+    tl = lines.shape[1] // ext.shape[-1]  # lines are [Z, nl*tl, 8] records
     tf = f.shape[0] // nvisit.shape[-1]
     assert sum(counts["visited"].values()) == int(nvisit.sum()) * tl * tf
     for k, v in counts["in_window"].items():
