@@ -159,9 +159,9 @@ _SIGNATURES = {
     # pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt, ub, vb,
     # n, L, B, sweeps, stream
     "disort_stage1": [_P] * 14 + [_I] * 4 + [_P],
-    # gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, P, y, utop, vtop, ubot, vbot,
+    # gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, S, utop, vtop, ubot, vbot,
     # n, L, B, stream
-    "disort_stage23": [_P] * 15 + [_I] * 3 + [_P],
+    "disort_stage23": [_P] * 14 + [_I] * 3 + [_P],
     "voigt_sum_pol": [_P] * 10 + [_I] * 5 + [_P],
     # f, rec, out, Z, F, NP, P, tf, stream
     "zeeman_mp": [_P] * 3 + [_I] * 5 + [_P],

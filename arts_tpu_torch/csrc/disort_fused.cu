@@ -24,30 +24,56 @@
 // division-safe rotation, k = sqrt(max(lambda, 1e-24)), Ek = exp(-k dtau),
 // and G+/G-.  Writes Ek, G+-, and the particular radiances.
 //
-// Stages 2+3, one thread per lane: the TPU grid walked the layers in
-// order with W [n x n] and uy [n] carried in VMEM scratch; here a loop in
-// the thread carries them in registers.  Per layer it assembles the
-// 2n x 2n block and the [0; I | rmod] right-hand side, eliminates without
-// pivoting (the blocks are diagonally dominant by construction), writes
-// the factors P [2n x n] and y [2n], and updates W = U P, uy = U y.  A
-// second loop walks the layers in reverse for the back-substitution and
-// the level radiances.
+// Stages 2+3, kTPL = 8 threads per lane (four lanes per warp), kLanes =
+// 16 lanes per block: the TPU grid walked the layers in order with W
+// [n x n] and uy [n] carried in VMEM scratch; here a loop in the block
+// carries them in shared memory.  Per layer the block stages its lanes'
+// G+, G-, Ek and right-hand sides in shared memory with cp.async
+// (lane-major, the next layer's copy in flight while this one is solved).
+// Thread t of a lane owns columns c = s kTPL + t of the layer system
+// [D | 0; I | rmod]: of D's 2n columns two (n = 8), and column t of P's n
+// (t < n); y's 2n rows are spread over the 8 threads, two each.  The
+// thread builds its columns (A rows -[Gm | GpE] - W T, B rows [GpE | Gm]
+// - Rsurf U at the surface), then an unpivoted Gauss-Jordan elimination
+// runs 2n steps: at step i, thread i % 8 writes column i and y's row i to
+// a per-lane shared slot, and every thread updates its columns and rows
+// (the blocks are diagonally dominant by construction).  Each value read
+// from the slot serves two or three columns: the shared-memory traffic
+// per step is what bounds such a solve, and one thread per column (a warp
+// per lane) moved three times as much.  Thread t ends holding P's column
+// t; it writes it to the scratch S [L, B, n + 1, 2n] (one contiguous 2n
+// run; y's rows after P's columns) and forms column t of W = U P, and row
+// t of uy = U y.  The backward loop stages each layer's S block with G+-,
+// Ek and the particular radiances; thread t forms rows t, t + 8 of X = y -
+// P t and then row t of the four outputs (utop, vtop, ubot, vbot), staged
+// in shared memory so that the block's stores coalesce.  No atomics:
+// repeated runs are bit-identical.
 //
-// Bound: both kernels move every input and output once (1.2 KB per
-// (lane, layer) in float32 for stage 1), so at the bench shape the memory
-// bound is a fraction of a millisecond; the arithmetic of stage 1 (~32
-// kflop per problem, mostly the Jacobi sweeps) is of the same order.
-// What limits them in this simple form is neither: a thread holds several
-// 8 x 8 matrices (stage 1) or a 16 x 17 system (stage 2), which spill from
-// registers to local memory, and stages 2+3 have one thread per lane, 4096
-// threads at the bench shape, too few to fill 132 SMs.  Blocks of 32 lanes
-// spread them over as many SMs as there are warps.
+// Bound: stage 1 moves every input and output once (1.2 KB per (lane,
+// layer) in float32), so at the bench shape its memory bound is a fraction
+// of a millisecond; its arithmetic (~32 kflop per problem, mostly the
+// Jacobi sweeps) is of the same order.  What limits stage 1 in this simple
+// form is neither: a thread holds several 8 x 8 matrices, which spill from
+// registers to local memory.  Stages 2+3 move their inputs and outputs
+// once, plus the scratch S (written once, read once) and G+-/Ek read a
+// second time, ~620 MB at the bench shape in float32 (~0.19 ms at 3.35
+// TB/s); the least arithmetic is ~3.1 GFLOP.  Each Gauss-Jordan step is a
+// dependency chain through shared memory, and 4096 lanes make only 1024
+// warps, 8 per SM: the kernel hides that latency with the independent
+// columns of a thread, not with other warps.
 
 #include <cuda_runtime.h>
 
+#include "async.cuh"
 #include "jacobi.cuh"
 
 namespace {
+
+using async::cp_async;
+using async::cp_async_commit;
+using async::cp_async_wait;
+using async::ld16;
+using async::st16;
 
 // Gaussian elimination without pivoting, A X = B; X overwrites B
 template <typename T, int N, int K>
@@ -298,160 +324,360 @@ fused_eigen_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
                          vec0, mat0, B, k, ek, gp, gm);
 }
 
+// ---------------------------------------------------------------------------
+// stages 2+3
+// ---------------------------------------------------------------------------
+
+constexpr int kTPL = 8;                    // threads per lane
+constexpr int kLanes = 16;                 // lanes per block, 4 per warp
+constexpr int kThreads23 = kTPL * kLanes;  // threads per block
+
+// Shared-memory layout of the stage 2+3 kernel, in elements of T.  Every
+// region and every per-lane stride is a multiple of 16 bytes.
 template <typename T, int N>
-__global__ void __launch_bounds__(32)
+struct S23 {
+  static constexpr int N2 = 2 * N, NN = N * N;
+  static constexpr int NOUT = 4 * N;          // output rows per layer
+  static constexpr int PS = (N + 1) * N2;     // scratch per (layer, lane)
+  // a thread's columns: c = s kTPL + t for slots s < NS; slots s < ND hold
+  // columns of the block D, slot ND one of P's (t < n); y's rows r = t +
+  // kTPL m, m < NY, are spread over the lane's threads
+  static constexpr int ND = N2 / kTPL, NS = ND + 1, NY = N2 / kTPL;
+  // a lane's staged layer; forward: G+, G-, Ek, rhs
+  static constexpr int FGP = 0, FGM = NN, FE = 2 * NN, FRHS = 2 * NN + N;
+  // backward: S (P columns, then y), G+, G-, Ek, ut, vt, ub, vb
+  static constexpr int BGP = PS, BGM = PS + NN, BE = PS + 2 * NN, BU = PS + 2 * NN + N;
+  // per-lane tile stride, padded to 4 (mod 32) 4-byte words so that the
+  // copies of one row for 8 neighbouring lanes fall in distinct banks
+  static constexpr int W0 = (PS + 2 * NN + 5 * N) * int(sizeof(T)) / 4;
+  static constexpr int TILE = (W0 + ((4 - W0) % 32 + 32) % 32) * 4 / int(sizeof(T));
+  static constexpr int WS = NN + N;           // W [n][n], then uy [n]
+  static constexpr int PV = N2 + 4;           // the pivot column, then y's pivot row
+  static constexpr int XS = N2 + N;           // y or X [2n], then t [n]
+  // region offsets
+  static constexpr int O_RS = 2 * kLanes * TILE;
+  static constexpr int O_W = O_RS + kLanes * NN;
+  static constexpr int O_PV = O_W + kLanes * WS;
+  static constexpr int O_X = O_PV + kLanes * 2 * PV;
+  static constexpr int O_OUT = O_X + kLanes * XS;
+  static constexpr int SIZE = O_OUT + 2 * NOUT * kLanes;
+  static_assert(TILE >= 2 * NN + 3 * N, "the forward tile fits");
+  static_assert(N2 % kTPL == 0 && N <= kTPL, "columns and rows spread evenly");
+};
+
+// copy the ROWS rows of layer l of a [layer, ROWS, B] array for the
+// block's lanes into the lane-major tiles: thread t copies lane t % kLanes
+// of rows t / kLanes + k kThreads23 / kLanes.  dst is that lane's tile,
+// src that lane's first entry (src + b), ok whether the lane exists.
+template <typename T, int ROWS>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int l, int B, bool ok) {
+  constexpr int STEP = kThreads23 / kLanes;
+  if (!ok) return;
+  const int r0 = threadIdx.x / kLanes;
+#pragma unroll
+  for (int k = 0; k < (ROWS + STEP - 1) / STEP; ++k) {
+    const int r = r0 + k * STEP;
+    if (ROWS % STEP == 0 || r < ROWS)
+      cp_async<sizeof(T)>(dst + r, src + (static_cast<long>(l) * ROWS + r) * B);
+  }
+}
+
+// the pivot's reciprocal: in float32 the hardware approximation and one
+// Newton step (no branch to the slow path of an IEEE quotient, whose
+// inputs, a zero, denormal or infinite pivot, do not arise in these
+// diagonally dominant blocks), in float64 the IEEE quotient
+__device__ __forceinline__ float recip(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return fmaf(r, fmaf(-x, r, 1.0f), r);
+}
+__device__ __forceinline__ double recip(double x) { return 1.0 / x; }
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads23, sizeof(T) == 4 ? 2 : 1)
 stage23_kernel(const T* __restrict__ gp, const T* __restrict__ gm,
                const T* __restrict__ ek, const T* __restrict__ rhs,
                const T* __restrict__ rsurf, const T* __restrict__ ut,
                const T* __restrict__ vt, const T* __restrict__ ub,
-               const T* __restrict__ vb, T* __restrict__ P,
-               T* __restrict__ y, T* __restrict__ utop, T* __restrict__ vtop,
-               T* __restrict__ ubot, T* __restrict__ vbot, int L, int B) {
-  constexpr int N2 = 2 * N;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const long sB = B;
-  auto at = [&](const T* base, long layer, int rows, int k) {
-    return base[(layer * rows + k) * sB + b];
+               const T* __restrict__ vb, T* __restrict__ S,
+               T* __restrict__ utop, T* __restrict__ vtop, T* __restrict__ ubot,
+               T* __restrict__ vbot, int L, int B) {
+  using C = S23<T, N>;
+  constexpr int N2 = C::N2, NN = C::NN, PS = C::PS, ND = C::ND, NS = C::NS, NY = C::NY;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sh = reinterpret_cast<T*>(smem);
+  // lane w of the block, thread t of the lane's kTPL; the four lanes of a
+  // warp run in step, so a lane past B computes on stale data and stores
+  // nothing
+  const int w = threadIdx.x / kTPL, t = threadIdx.x % kTPL;
+  const int b0 = blockIdx.x * kLanes;
+  const long b = b0 + w;
+  const bool valid = b < B;
+  T* const W = sh + C::O_W + w * C::WS;
+  T* const pv = sh + C::O_PV + w * 2 * C::PV;
+  T* const X = sh + C::O_X + w * C::XS;
+  const T* const Rs = sh + C::O_RS + w * NN;
+
+  auto tile = [&](int buf, int lane) { return sh + (buf * kLanes + lane) * C::TILE; };
+  // the lane this thread stages, and whether it exists
+  const int sl = threadIdx.x % kLanes;
+  const bool sok = b0 + sl < B;
+  const long sb = b0 + sl;
+  auto stage_fwd = [&](int l, int buf) {
+    T* tl = tile(buf, sl);
+    stage_rows<T, NN>(tl + C::FGP, gp + sb, l, B, sok);
+    stage_rows<T, NN>(tl + C::FGM, gm + sb, l, B, sok);
+    stage_rows<T, N>(tl + C::FE, ek + sb, l, B, sok);
+    stage_rows<T, N2>(tl + C::FRHS, rhs + sb, l, B, sok);
+  };
+  // chunks of 16 bytes of the block's S blocks (one contiguous run per
+  // layer) that exist
+  constexpr int V = 16 / sizeof(T), CH = PS / V, NCH = CH * kLanes;
+  const unsigned nch = CH * static_cast<unsigned>(B - b0 < kLanes ? B - b0 : kLanes);
+  auto stage_bwd = [&](int l, int buf) {
+    const T* src = S + (static_cast<long>(l) * B + b0) * PS;
+#pragma unroll
+    for (int k = 0; k < (NCH + kThreads23 - 1) / kThreads23; ++k) {
+      const unsigned i = threadIdx.x + k * kThreads23;
+      if (i < nch) cp_async<16>(tile(buf, i / CH) + (i % CH) * V, src + i * V);
+    }
+    T* tl = tile(buf, sl);
+    stage_rows<T, NN>(tl + C::BGP, gp + sb, l, B, sok);
+    stage_rows<T, NN>(tl + C::BGM, gm + sb, l, B, sok);
+    stage_rows<T, N>(tl + C::BE, ek + sb, l, B, sok);
+    stage_rows<T, N>(tl + C::BU, ut + sb, l, B, sok);
+    stage_rows<T, N>(tl + C::BU + N, vt + sb, l, B, sok);
+    stage_rows<T, N>(tl + C::BU + 2 * N, ub + sb, l, B, sok);
+    stage_rows<T, N>(tl + C::BU + 3 * N, vb + sb, l, B, sok);
   };
 
-  T Rs[N][N], W[N][N], uy[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    uy[i] = T(0);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      Rs[i][j] = rsurf[static_cast<long>(i * N + j) * sB + b];
-      W[i][j] = T(0);
-    }
+  // Rsurf, the first layer, and W = uy = t = 0
+  for (int i = threadIdx.x; i < NN * kLanes; i += kThreads23) {
+    const int r = i / kLanes, lane = i % kLanes;
+    if (b0 + lane < B)
+      cp_async<sizeof(T)>(sh + C::O_RS + lane * NN + r, rsurf + static_cast<long>(r) * B + b0 + lane);
   }
+  stage_fwd(0, 0);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kLanes * C::WS; i += kThreads23) sh[C::O_W + i] = T(0);
+  for (int i = threadIdx.x; i < kLanes * C::XS; i += kThreads23) sh[C::O_X + i] = T(0);
+  cp_async_wait<0>();
+  __syncthreads();
 
   // forward elimination over the layers
 #pragma unroll 1
   for (int l = 0; l < L; ++l) {
-    T Gp[N][N], GmE[N][N], Gm[N][N], GpE[N][N];
+    const int buf = l & 1;
+    if (l + 1 < L) stage_fwd(l + 1, buf ^ 1);
+    cp_async_commit();
+    const T* const tf = tile(buf, w);
+    T col[NS][N2], yv[NY];
     {
-      T e[N];
+      // D's columns c = s kTPL + t, s < ND, from column kk of G+ and G-:
+      // U = [GmE | Gp], T = -[Gp | GmE]
+      T x[ND][N], y[ND][N], we[ND], wb[ND];
 #pragma unroll
-      for (int j = 0; j < N; ++j) e[j] = at(ek, l, N, j);
+      for (int s = 0; s < ND; ++s) {
+        const int c = s * kTPL + t, kk = c < N ? c : c - N;
+        const T e = tf[C::FE + kk];
+        we[s] = c < N ? T(1) : e;
+        wb[s] = c < N ? e : T(1);
+        const int ox = c < N ? C::FGP : C::FGM, oy = c < N ? C::FGM : C::FGP;
+#pragma unroll
+        for (int m = 0; m < N; ++m) {
+          x[s][m] = tf[ox + m * N + kk];
+          y[s][m] = tf[oy + m * N + kk];
+        }
+      }
+      // A rows: W (-T) - [Gm | GpE]
 #pragma unroll
       for (int i = 0; i < N; ++i) {
+        T wr[N];
+        ld16(W + i * N, wr);
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          Gp[i][j] = at(gp, l, N * N, i * N + j);
-          Gm[i][j] = at(gm, l, N * N, i * N + j);
-          GpE[i][j] = Gp[i][j] * e[j];
-          GmE[i][j] = Gm[i][j] * e[j];
+        for (int s = 0; s < ND; ++s) {
+          T a = wr[0] * (x[s][0] * we[s]);
+#pragma unroll
+          for (int m = 1; m < N; ++m) a += wr[m] * (x[s][m] * we[s]);
+          col[s][i] = a - y[s][i] * we[s];
         }
       }
-    }
-    // U = [GmE | Gp];  T = -[Gp | GmE]
-    auto U = [&](int i, int k) { return k < N ? GmE[i][k] : Gp[i][k - N]; };
-    auto Tn = [&](int i, int k) { return -(k < N ? Gp[i][k] : GmE[i][k - N]); };
-    T D[N2][N2], R[N2][N + 1];
+      // B rows: [GpE | Gm], minus Rsurf U at the surface
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+      for (int s = 0; s < ND; ++s) {
 #pragma unroll
-      for (int k = 0; k < N2; ++k) {
-        // A rows: -[Gm | GpE] - W T
-        T wt = W[i][0] * Tn(0, k);
+        for (int i = 0; i < N; ++i) col[s][N + i] = x[s][i] * wb[s];
+      }
+      if (l == L - 1) {
 #pragma unroll
-        for (int m = 1; m < N; ++m) wt += W[i][m] * Tn(m, k);
-        D[i][k] = -(k < N ? Gm[i][k] : GpE[i][k - N]) - wt;
-        // B rows: [GpE | Gm], minus Rsurf U at the surface
-        T bk = k < N ? GpE[i][k] : Gm[i][k - N];
-        if (l == L - 1) {
-          T ru = Rs[i][0] * U(0, k);
+        for (int i = 0; i < N; ++i) {
+          T rr[N];
+          ld16(Rs + i * N, rr);
 #pragma unroll
-          for (int m = 1; m < N; ++m) ru += Rs[i][m] * U(m, k);
-          bk -= ru;
+          for (int s = 0; s < ND; ++s) {
+            T a = rr[0] * (y[s][0] * wb[s]);
+#pragma unroll
+            for (int m = 1; m < N; ++m) a += rr[m] * (y[s][m] * wb[s]);
+            col[s][N + i] -= a;
+          }
         }
-        D[N + i][k] = bk;
       }
+      // P's column j = t: [0; e_j]
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        R[i][j] = T(0);
-        R[N + i][j] = i == j ? T(1) : T(0);
+      for (int r = 0; r < N2; ++r) col[ND][r] = t < N && r == N + t ? T(1) : T(0);
+      // y's rows: [rhs_top - uy; rhs_bot]
+#pragma unroll
+      for (int m = 0; m < NY; ++m) {
+        const int r = t + kTPL * m;
+        yv[m] = tf[C::FRHS + r] - (r < N ? W[NN + r] : T(0));
       }
-      R[i][N] = at(rhs, l, N2, i) - uy[i];
-      R[N + i][N] = at(rhs, l, N2, N + i);
     }
-    ge_solve<T, N2, N + 1>(D, R);
+
+    // Gauss-Jordan without pivoting: thread i % kTPL hands out column i
+    // and y's row i; every column c > i and every row of y takes the step
+    // (a column c <= i is never read again, so a slot whose columns are
+    // all done is skipped)
 #pragma unroll
-    for (int k = 0; k < N2; ++k) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) P[(static_cast<long>(l) * N2 * N + k * N + j) * sB + b] = R[k][j];
-      y[(static_cast<long>(l) * N2 + k) * sB + b] = R[k][N];
-    }
-    // W = U P;  uy = U y
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        T s = U(i, 0) * R[0][j];
-#pragma unroll
-        for (int k = 1; k < N2; ++k) s += U(i, k) * R[k][j];
-        W[i][j] = s;
+    for (int i = 0; i < N2; ++i) {
+      T* const slot = pv + (i & 1) * C::PV;
+      if (t == i % kTPL) {
+        st16(slot, col[i / kTPL]);
+        slot[N2] = yv[i / kTPL];
       }
-      T s = U(i, 0) * R[0][N];
+      __syncwarp();
+      T p[N2];
+      ld16(slot, p);
+      const T inv = recip(p[i]);
 #pragma unroll
-      for (int k = 1; k < N2; ++k) s += U(i, k) * R[k][N];
-      uy[i] = s;
+      for (int s = 0; s < NS; ++s) {
+        if (s < ND && s * kTPL + kTPL - 1 <= i) continue;
+        const T xi = col[s][i] * inv;
+#pragma unroll
+        for (int r = 0; r < N2; ++r)
+          if (r != i) col[s][r] -= p[r] * xi;
+        col[s][i] = xi;
+      }
+      const T yi = slot[N2] * inv;
+#pragma unroll
+      for (int m = 0; m < NY; ++m) {
+        const int r = t + kTPL * m;
+        yv[m] = r == i ? yi : yv[m] - slot[r] * yi;
+      }
     }
+
+    // the solution: P's column t and y's rows, to the scratch and (y) to
+    // shared memory
+    T* const Sl = S + (static_cast<long>(l) * B + b) * PS;
+    if (valid && t < N) st16(Sl + t * N2, col[ND]);
+#pragma unroll
+    for (int m = 0; m < NY; ++m) {
+      if (valid) Sl[N * N2 + t + kTPL * m] = yv[m];
+      X[t + kTPL * m] = yv[m];
+    }
+    __syncwarp();
+    // W = U P (column t, from the thread's own P column) and uy = U y (row
+    // t, from y in shared memory)
+    if (t < N) {
+      T e[N], yy[N2];
+      ld16(tf + C::FE, e);
+      ld16(X, yy);
+      T wc[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        T g1[N], g2[N];
+        ld16(tf + C::FGM + i * N, g1);
+        ld16(tf + C::FGP + i * N, g2);
+        T a = (g1[0] * e[0]) * col[ND][0];
+#pragma unroll
+        for (int k = 1; k < N; ++k) a += (g1[k] * e[k]) * col[ND][k];
+#pragma unroll
+        for (int k = 0; k < N; ++k) a += g2[k] * col[ND][N + k];
+        wc[i] = a;
+      }
+      T g1[N], g2[N];
+      ld16(tf + C::FGM + t * N, g1);
+      ld16(tf + C::FGP + t * N, g2);
+      T a = (g1[0] * e[0]) * yy[0];
+#pragma unroll
+      for (int k = 1; k < N; ++k) a += (g1[k] * e[k]) * yy[k];
+#pragma unroll
+      for (int k = 0; k < N; ++k) a += g2[k] * yy[N + k];
+#pragma unroll
+      for (int i = 0; i < N; ++i) W[i * N + t] = wc[i];
+      W[NN + t] = a;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
   }
 
-  // back-substitution and level radiances, surface to TOA
-  T t[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) t[i] = T(0);
+  // back-substitution and level radiances, surface to TOA; t = 0 below
+  // the surface layer
+  for (int i = threadIdx.x; i < kLanes * C::XS; i += kThreads23) sh[C::O_X + i] = T(0);
+  stage_bwd(L - 1, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 #pragma unroll 1
   for (int l = L - 1; l >= 0; --l) {
-    T X[N2];
+    const int buf = (L - 1 - l) & 1;
+    if (l > 0) stage_bwd(l - 1, buf ^ 1);
+    cp_async_commit();
+    T* const ot = sh + C::O_OUT + buf * C::NOUT * kLanes;
+    const T* const tb = tile(buf, w);
+    {
+      // X = y - P t, rows t + kTPL m
+      T tt[N];
+      ld16(X + N2, tt);
+      T xv[NY];
 #pragma unroll
-    for (int k = 0; k < N2; ++k) {
-      T v = P[(static_cast<long>(l) * N2 * N + k * N) * sB + b] * t[0];
+      for (int m = 0; m < NY; ++m) {
+        const int k = t + kTPL * m;
+        T v = tb[k] * tt[0];
 #pragma unroll
-      for (int j = 1; j < N; ++j) v += P[(static_cast<long>(l) * N2 * N + k * N + j) * sB + b] * t[j];
-      X[k] = y[(static_cast<long>(l) * N2 + k) * sB + b] - v;
+        for (int j = 1; j < N; ++j) v += tb[j * N2 + k] * tt[j];
+        xv[m] = tb[N * N2 + k] - v;
+      }
+      __syncwarp();  // t is read
+#pragma unroll
+      for (int m = 0; m < NY; ++m) X[t + kTPL * m] = xv[m];
     }
-    T Gp[N][N], Gm[N][N], e[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) e[j] = at(ek, l, N, j);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
+    __syncwarp();
+    if (t < N) {
+      // row t of utop = Gp Cp + GmE Cm + ut, vtop = Gm Cp + GpE Cm + vt,
+      // ubot = GpE Cp + Gm Cm + ub, vbot = GmE Cp + Gp Cm + vb
+      T gpr[N], gmr[N], e[N], xp[N], xm[N];
+      ld16(tb + C::BGP + t * N, gpr);
+      ld16(tb + C::BGM + t * N, gmr);
+      ld16(tb + C::BE, e);
+      ld16(X, xp);
+      ld16(X + N, xm);
+      T s[4][2];
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        Gp[i][j] = at(gp, l, N * N, i * N + j);
-        Gm[i][j] = at(gm, l, N * N, i * N + j);
+        const T gpe = gpr[j] * e[j], gme = gmr[j] * e[j];
+        const T f[4][2] = {{gpr[j], gme}, {gmr[j], gpe}, {gpe, gmr[j]}, {gme, gpr[j]}};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          s[q][0] = j == 0 ? f[q][0] * xp[0] : s[q][0] + f[q][0] * xp[j];
+          s[q][1] = j == 0 ? f[q][1] * xm[0] : s[q][1] + f[q][1] * xm[j];
+        }
       }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        ot[(q * N + t) * kLanes + w] = s[q][0] + s[q][1] + tb[C::BU + q * N + t];
+      X[N2 + t] = -(s[0][0] + s[0][1]);  // carry to the layer above
     }
-    const T* Cp = X;
-    const T* Cm = X + N;
+    cp_async_wait<0>();
+    __syncthreads();
+    // the block's outputs of layer l, lanes contiguous
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      // sums over j of each product, in ascending j as in the plain version
-      T GpX = Gp[i][0] * Cp[0], GmEX = Gm[i][0] * e[0] * Cm[0];
-      T GmX = Gm[i][0] * Cp[0], GpEX = Gp[i][0] * e[0] * Cm[0];
-      T GpEXp = Gp[i][0] * e[0] * Cp[0], GmXm = Gm[i][0] * Cm[0];
-      T GmEXp = Gm[i][0] * e[0] * Cp[0], GpXm = Gp[i][0] * Cm[0];
-#pragma unroll
-      for (int j = 1; j < N; ++j) {
-        const T gpe = Gp[i][j] * e[j], gme = Gm[i][j] * e[j];
-        GpX += Gp[i][j] * Cp[j];
-        GmEX += gme * Cm[j];
-        GmX += Gm[i][j] * Cp[j];
-        GpEX += gpe * Cm[j];
-        GpEXp += gpe * Cp[j];
-        GmXm += Gm[i][j] * Cm[j];
-        GmEXp += gme * Cp[j];
-        GpXm += Gp[i][j] * Cm[j];
+    for (int k = 0; k < (C::NOUT * kLanes + kThreads23 - 1) / kThreads23; ++k) {
+      const int i = threadIdx.x + k * kThreads23;
+      const int r = i / kLanes, lane = i % kLanes, q = r / N;
+      if (i < C::NOUT * kLanes && b0 + lane < B) {
+        T* const out = q == 0 ? utop : q == 1 ? vtop : q == 2 ? ubot : vbot;
+        out[(static_cast<long>(l) * N + r % N) * B + b0 + lane] = ot[i];
       }
-      const long o = (static_cast<long>(l) * N + i) * sB + b;
-      utop[o] = GpX + GmEX + ut[o];
-      vtop[o] = GmX + GpEX + vt[o];
-      ubot[o] = GpEXp + GmXm + ub[o];
-      vbot[o] = GmEXp + GpXm + vb[o];
-      t[i] = -(GpX + GmEX);  // carry to the layer above
     }
   }
 }
@@ -474,14 +700,21 @@ int launch_stage1(const void* const* a, void* const* o, int L, int B,
 template <typename T, int N>
 int launch_stage23(const void* const* a, void* const* o, int L, int B,
                    cudaStream_t s) {
-  stage23_kernel<T, N><<<(B + 31) / 32, 32, 0, s>>>(
+  const size_t smem = S23<T, N>::SIZE * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stage23_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  stage23_kernel<T, N><<<(B + kLanes - 1) / kLanes, kThreads23, smem, s>>>(
       static_cast<const T*>(a[0]), static_cast<const T*>(a[1]),
       static_cast<const T*>(a[2]), static_cast<const T*>(a[3]),
       static_cast<const T*>(a[4]), static_cast<const T*>(a[5]),
       static_cast<const T*>(a[6]), static_cast<const T*>(a[7]),
       static_cast<const T*>(a[8]), static_cast<T*>(o[0]),
       static_cast<T*>(o[1]), static_cast<T*>(o[2]), static_cast<T*>(o[3]),
-      static_cast<T*>(o[4]), static_cast<T*>(o[5]), L, B);
+      static_cast<T*>(o[4]), L, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -501,10 +734,10 @@ int stage1(const void* pp, const void* pm, const void* om, const void* dtau,
 template <typename T>
 int stage23(const void* gp, const void* gm, const void* ek, const void* rhs,
             const void* rsurf, const void* ut, const void* vt, const void* ub,
-            const void* vb, void* P, void* y, void* utop, void* vtop,
-            void* ubot, void* vbot, int n, int L, int B, void* stream) {
+            const void* vb, void* S, void* utop, void* vtop, void* ubot,
+            void* vbot, int n, int L, int B, void* stream) {
   const void* a[] = {gp, gm, ek, rhs, rsurf, ut, vt, ub, vb};
-  void* o[] = {P, y, utop, vtop, ubot, vbot};
+  void* o[] = {S, utop, vtop, ubot, vbot};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 8) return launch_stage23<T, 8>(a, o, L, B, s);
   if (n == 4) return launch_stage23<T, 4>(a, o, L, B, s);
@@ -549,8 +782,8 @@ int eigen(const void* pp, const void* pm, const void* om, const void* dtau,
 #define STAGE23_ARGS                                                       \
   const void *gp, const void *gm, const void *ek, const void *rhs,         \
       const void *rsurf, const void *ut, const void *vt, const void *ub,   \
-      const void *vb, void *P, void *y, void *utop, void *vtop,            \
-      void *ubot, void *vbot, int n, int L, int B, void *stream
+      const void *vb, void *S, void *utop, void *vtop, void *ubot,         \
+      void *vbot, int n, int L, int B, void *stream
 
 extern "C" int disort_stage1_f32(STAGE1_ARGS) {
   return stage1<float>(pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt,
@@ -561,12 +794,12 @@ extern "C" int disort_stage1_f64(STAGE1_ARGS) {
                         ub, vb, n, L, B, sweeps, stream);
 }
 extern "C" int disort_stage23_f32(STAGE23_ARGS) {
-  return stage23<float>(gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, P, y, utop,
-                        vtop, ubot, vbot, n, L, B, stream);
+  return stage23<float>(gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, S, utop, vtop,
+                        ubot, vbot, n, L, B, stream);
 }
 extern "C" int disort_stage23_f64(STAGE23_ARGS) {
-  return stage23<double>(gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, P, y, utop,
-                         vtop, ubot, vbot, n, L, B, stream);
+  return stage23<double>(gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, S, utop, vtop,
+                         ubot, vbot, n, L, B, stream);
 }
 extern "C" int fused_eigen_f32(EIGEN_ARGS) {
   return eigen<float>(pp, pm, om, dtau, qtab, k, ek, gp, gm, n, L, B, sweeps,

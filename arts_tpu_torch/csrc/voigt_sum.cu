@@ -54,7 +54,13 @@
 
 #include <cuda_runtime.h>
 
+#include "async.cuh"
+
 namespace {
+
+using async::cp_async;
+using async::cp_async_commit;
+using async::cp_async_wait;
 
 constexpr double kInvSqrtPi = 0.56418958354775628695;
 constexpr double kAsymR2 = 512.0;
@@ -95,22 +101,6 @@ __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
 
 template <typename T>
 __device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
-
-// 16-byte asynchronous copy global -> shared, bypassing L1
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <typename T>
 struct Line {
@@ -378,7 +368,7 @@ voigt_sum_kernel(const T* __restrict__ f, const T* __restrict__ lines,
     const T* src = lz + static_cast<long>(bl[j]) * kBlockElems;
     T* dst = ring + buf * kBlockElems;
     for (int c = tid; c < kChunks; c += kThreads) {
-      cp_async16(dst + c * kPerChunk, src + c * kPerChunk);
+      cp_async<16>(dst + c * kPerChunk, src + c * kPerChunk);
     }
   };
 #pragma unroll

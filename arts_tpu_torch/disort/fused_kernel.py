@@ -10,11 +10,13 @@ read neighbouring lanes.
            phase matrices -> H1/H2 -> Cholesky(-H1) -> Hsym = -Lc^T H2 Lc
            -> tournament cyclic Jacobi -> k, Ek = exp(-k dtau), G+/G- and
            the thermal particular solution at the layer top and bottom.
-  stages 2+3 (kernel `disort_stage23`, one thread per lane): the
-           structured block-tridiagonal Thomas elimination forward over
-           the layers, carrying W [n x n] and uy [n], then the
-           back-substitution in reverse layer order with the level
-           radiances u/v at every layer top and bottom.
+  stages 2+3 (kernel `disort_stage23`, 8 threads per lane, each
+           owning columns of the layer's system): the structured
+           block-tridiagonal Thomas elimination forward over the layers,
+           carrying W [n x n] and uy [n], each layer's block solved by
+           Gauss-Jordan elimination, then the back-substitution in reverse
+           layer order with the level radiances u/v at every layer top
+           and bottom.
 
 Eigenmode order is whatever the Jacobi sweep leaves (no sort): the
 boundary-value problem treats modes symmetrically, and the plain versions
@@ -142,14 +144,14 @@ def stage23(gp, gm, ek, rhs, rsurf, ut, vt, ub, vb):
                            ("vt", vt, (L, n, B)), ("ub", ub, (L, n, B)),
                            ("vb", vb, (L, n, B))):
         _cuda.check(name, t, dev, dt, shape)
-    # P [L, 2n*n, B] and y [L, 2n, B]: the forward factors, read back by
-    # the backward pass of the same kernel
-    P = torch.empty((L, 2 * n * n, B), dtype=dt, device=dev)
-    y = torch.empty((L, 2 * n, B), dtype=dt, device=dev)
+    # the kernel's scratch S [L, B, n + 1, 2n]: per (layer, lane) the n
+    # columns of the forward factor P, then y, written by the forward and
+    # read back by the backward pass of the same kernel
+    S = torch.empty((L, B, n + 1, 2 * n), dtype=dt, device=dev)
     outs = tuple(torch.empty((L, n, B), dtype=dt, device=dev) for _ in range(4))
     if L and B:
         _cuda.launch("disort_stage23", dt, *map(_cuda.ptr, (
-            gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, P, y) + outs), n, L, B)
+            gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, S) + outs), n, L, B)
     return outs
 
 

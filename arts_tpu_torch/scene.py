@@ -7,6 +7,8 @@ atmosphere, one Henyey-Greenstein cloud between 4 and 9 km, and a 288 K
 surface.  build_zeeman_inputs is bench.py's Zeeman stage on that scene.
 build_cloud_retrieval is an OEM retrieval of cloud extinction, single
 scattering albedo and surface temperature in a cloudy microwave window.
+build_stage23_case gives the DISORT stage 2+3 kernel random problems on
+which its elimination shows.
 """
 
 import dataclasses
@@ -18,6 +20,9 @@ from ._cuda import move, resolve
 from .atm import Atmosphere1D
 from .atm.field import hydrostatic_pressure
 from .atm.standard import standard_atmosphere
+from .disort import DisortInput
+from .disort import fused_kernel as FK
+from .disort.solver import solve_terms
 from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky
 from .io.hitran import read_par, zeeman_catalog_from_par
 from .lbl.catalog import build_catalog
@@ -104,6 +109,34 @@ def build_zeeman_inputs(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=
         vmr=pts.vmr, mag=torch.tensor([0.0, 3e-5, 3e-5], dtype=dt, device=dev),
         los_za_deg=180.0, tune=tune_zeeman_profile(f_grid, pzcat),
     )
+
+
+def build_stage23_case(nquad, B, L, seed, device=None, dtype=None):
+    """The stage 2+3 inputs (gp, gm, ek, rhs, rsurf, ut, vt, ub, vb) of B
+    random thermal problems of L layers, nquad streams, one Fourier mode:
+    optical depth 0.05-2 and single scattering albedo 0-0.9 per layer,
+    Legendre moments g^k with g in 0.3-0.8, a Planck profile rising from
+    top to bottom, a cold top (b 0.01) and a Lambertian surface of albedo
+    0.3 (a non-zero Rsurf) at b 2.5.  So the homogeneous solution, which
+    the block-tridiagonal elimination computes, carries a large part of
+    the level radiances at the boundaries; on build_scene's black surface
+    they are the particular solution to within its rounding.  Stage 1 runs
+    its plain version in float64; the inputs are then cast to dtype."""
+    dev, dt = resolve(device, dtype)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    inp = DisortInput(
+        tau=t(rng.uniform(0.05, 2.0, (B, L))), omega=t(rng.uniform(0.0, 0.9, (B, L))),
+        leg=t(rng.uniform(0.3, 0.8, (B, L, 1)) ** np.arange(nquad)), f=t(np.zeros((B, L))),
+        b_levels=t(np.linspace(1.0, 2.0, L + 1) * rng.uniform(0.5, 1.5, (B, 1))),
+        fisot=t(np.zeros(B)), albedo=t(np.full(B, 0.3)), b_surf=t(np.full(B, 2.5)),
+        b_top=t(np.full(B, 0.01)))
+    tm = solve_terms(inp, nquad, 1)
+    s1 = FK.stage1_inputs(tm["leg_scaled"], tm["omega_p"], tm["dtau_p"], tm["tb0"], tm["tb1"],
+                          lam=tm["lam"], sign=tm["sign"], mu=tm["mu"], w=tm["w"])
+    ek, gp, gm, ut, vt, ub, vb = FK.stage1_plain(*s1, 8)
+    rhs, rsurf = FK.stage23_inputs(ut, vt, ub, vb, tm["rsurf"], tm["b_neg"], tm["rhs_surf"])
+    return tuple(x.to(dt).contiguous() for x in (gp, gm, ek, rhs, rsurf, ut, vt, ub, vb))
 
 
 def window_scene(n_lev=51, device=None, dtype=None):

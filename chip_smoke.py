@@ -13,7 +13,13 @@
    split of the visit lists and at SPLITS, beside its bound and ptxas
    report;
 3. holds the two DISORT kernels against their plain versions at the full
-   4096 x 59 x n=8 shape, in float64 and float32-against-float64;
+   4096 x 59 x n=8 shape, in float64 and float32-against-float64; for
+   stages 2+3 also on random problems with a reflecting surface, where
+   the elimination carries a large part of the radiances, at 4096 + 5
+   lanes (not a multiple of the kernel's 16 lanes per block) with 59
+   layers and with one (L = 1), checks two float32 runs bit-identical,
+   and logs the traffic of its algorithm beside its bound and its ptxas
+   report;
 4. drives the all-sky main path (2048 lines x 4096 frequencies x 60
    levels, 16 streams, float32) through gas_absorption_profile and
    simulate_allsky, with every launch counter set to 0 just before and
@@ -76,6 +82,7 @@ import torch
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 NQUAD = 16
+RADIANCES = ("utop", "vtop", "ubot", "vbot")
 # chunks per (level, tile) visit list timed beside the default split
 SPLITS = (1, 2, 4, 8, 16)
 
@@ -96,12 +103,13 @@ def card_line():
     ).stdout.strip()
 
 
-def close(got, want, rtol, atol_scale, what):
-    """|got - want| <= atol_scale * max|want| + rtol * |want| everywhere;
-    returns the largest absolute difference."""
+def close(got, want, rtol, atol_scale, what, scale=None):
+    """|got - want| <= atol_scale * scale + rtol * |want| everywhere, scale
+    max|want| unless given; returns the largest absolute difference and
+    its ratio to scale."""
     got, want = got.double(), want.double()
     err = (got - want).abs()
-    scale = float(want.abs().max())
+    scale = float(want.abs().max()) if scale is None else scale
     bad = err > atol_scale * scale + rtol * want.abs()
     require(torch.isfinite(got).all(), f"{what}: non-finite values")
     require(not bool(bad.any()), f"{what}: max |diff| {float(err.max()):.3e} "
@@ -294,6 +302,7 @@ def phase_disort(scenes, dev):
     from arts_tpu_torch.disort import fused_kernel as FK
     from arts_tpu_torch.disort.solver import solve_terms
     from arts_tpu_torch.fwd_allsky import allsky_input
+    from arts_tpu_torch.scene import build_stage23_case
 
     scene, f = scenes[torch.float64]
     inp = {torch.float64: allsky_input(scene, f, gas_absorption_profile(
@@ -339,11 +348,42 @@ def phase_disort(scenes, dev):
         y4 = FK.stage23_plain(*s23)
         torch.cuda.synchronize()
         e23 = 0.0
-        for name, x, y in zip(("utop", "vtop", "ubot", "vbot"), x4, y4):
+        for name, x, y in zip(RADIANCES, x4, y4):
             err, r = close(x, y, rtol, rtol, f"disort_stage23 {dt} {name}")
             e23 = max(e23, err)
             log(f"disort_stage23 {str(dt)[6:]} {name}: max|diff| {err:.3e} ({r:.2e} of scale; "
                 f"held at rtol {rtol}, atol {rtol} * scale)")
+        # random problems with a cold top and a reflecting surface
+        # (scene.build_stage23_case), where the homogeneous solution that
+        # the elimination computes is a large part of the radiances (on
+        # the bench's black surface they are the particular solution to
+        # within its rounding, so the checks above hardly see the
+        # elimination): the bench's 16 streams and 59 layers and the
+        # surface layer alone (L = 1), at 5 lanes past the bench's (not a
+        # multiple of the kernel's 16 lanes per block).  The four radiances
+        # are held together, at rtol of the largest of them: at L = 1, vtop
+        # is the top boundary value alone, which the solve returns through
+        # a cancellation of terms of the radiances' scale
+        Lb, _, Bb = s23[0].shape
+        for Lr in (Lb, 1):
+            ins = build_stage23_case(NQUAD, Bb + 5, Lr, seed=Lr, device=dev, dtype=dt)
+            x4, y4 = FK.stage23(*ins), FK.stage23_plain(*ins)
+            torch.cuda.synchronize()
+            what = f"disort_stage23 {str(dt)[6:]} random L={Lr}, B={Bb + 5}"
+            scale = max(float(y.double().abs().max()) for y in y4)
+            hom = max(float((y.double() - p.double()).abs().max()) for y, p in zip(y4, ins[5:]))
+            require(hom >= 100 * rtol * scale, f"{what}: the homogeneous part "
+                    f"{hom / scale:.2e} of scale is within 100 rtol")
+            err = max(close(x, y, rtol, rtol, f"{what} {name}", scale)[0]
+                      for name, x, y in zip(RADIANCES, x4, y4))
+            e23 = max(e23, err)
+            log(f"{what}: max|diff| {err:.3e} ({err / scale:.2e} of the radiances' scale; held "
+                f"at rtol {rtol}, atol {rtol} * that scale); plain radiances minus the "
+                f"particular solution {hom / scale:.2e} of that scale")
+            if dt == torch.float32:
+                require(all(torch.equal(x, y) for x, y in zip(x4, FK.stage23(*ins))),
+                        f"{what}: two runs differ")
+                log(f"{what}: two runs bit-identical")
         errs[dt] = (e1, e23)
 
     # the whole fused solve: float64 kernels against float64 plain, and the
@@ -373,10 +413,19 @@ def phase_disort(scenes, dev):
     ms23 = cuda_ms(lambda: FK.stage23(*s23), 10)
     plain23 = cuda_ms(lambda: FK.stage23_plain(*s23), 2)
     b23 = bound(B * stage23_flops(n, L), nbytes(*s23) + 4 * L * n * B * 4)
+    # what the algorithm moves: G+-/Ek read by both passes, the scratch
+    # (P and y, [L, B, n + 1, 2n]) written by the forward and read by the
+    # backward pass
+    traffic = (2 * nbytes(*s23[:3]) + nbytes(*s23[3:]) + 2 * L * B * (n + 1) * 2 * n * 4
+               + 4 * L * n * B * 4)
     log(f"disort_stage1 float32 [{L} x {B}] n={n}: {ms1:.3f} ms (plain {plain1:.1f} ms), "
         f"bound {b1[0]:.4f} ms ({b1[1]})")
     log(f"disort_stage23 float32 [{L} x {B}] n={n}: {ms23:.3f} ms (plain {plain23:.1f} ms), "
-        f"bound {b23[0]:.4f} ms ({b23[1]})")
+        f"bound {b23[0]:.4f} ms ({b23[1]}; {B * stage23_flops(n, L) / 1e9:.2f} GFLOP); "
+        f"the algorithm's own traffic {traffic / 1e6:.1f} MB, "
+        f"{traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+    log_ptxas("stage23_kernel<float, 8>", "stage23_kernel<float, 4>",
+              "stage23_kernel<double, 8>", "stage23_kernel<double, 4>")
     common = dict(route="cuda", source="arts_tpu_torch/csrc/disort_fused.cu", library_ms=None)
     return [
         dict(name="disort_stage1", replaces="arts_tpu/disort/fused_kernel.py:447",

@@ -245,3 +245,41 @@ def test_differentiable_route_kernel_matches_plain(dev):
     Ja = torch.func.jacfwd(lambda x: run(x, False))(tau)
     Jb = torch.func.jacfwd(lambda x: run(x, True))(tau)
     assert float((Ja - Jb).abs().max()) <= 1e-9 * float(Jb.abs().max())
+
+
+@pytest.mark.parametrize("L", [1, 2, 7])
+@pytest.mark.parametrize("B", [1, 7, 300])
+@pytest.mark.parametrize("nquad", [8, 16])
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 2e-5), (torch.float32, 1e-4)])
+def test_stage23_kernel_matches_plain(dev, dtype, rtol, nquad, B, L):
+    """The stage 2+3 kernel against its plain version, B lanes (1 and 7 are
+    less than a block's 16 lanes, 300 not a multiple of them) and L layers
+    (at L = 1 the one layer is also the surface layer), at chip_smoke's
+    rtol (2e-5 float64, 1e-4 float32).  The four level radiances are held
+    together, at rtol of |want| plus rtol of the largest of them: at L = 1
+    vtop is the top boundary value alone, which the solve returns through
+    a cancellation of terms of the radiances' scale."""
+    from arts_tpu_torch.disort import fused_kernel as FK
+    from arts_tpu_torch.scene import build_stage23_case
+
+    ins = build_stage23_case(nquad, B, L, seed=100 * B + L, device=dev, dtype=dtype)
+    assert float(ins[4].abs().max()) > 0  # a reflecting surface
+    got, want = FK.stage23(*ins), FK.stage23_plain(*ins)
+    scale = max(float(w.double().abs().max()) for w in want)
+    assert scale > 0
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        assert tuple(g.shape) == (L, nquad // 2, B) and bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= rtol * (scale + w.abs())).all())
+
+
+def test_stage23_kernel_float32_runs_bit_identical(dev):
+    """Two float32 runs of the stage 2+3 kernel on the same inputs (300
+    lanes, 7 layers, 16 streams) give the same bits: no atomics, a fixed
+    order of every sum."""
+    from arts_tpu_torch.disort import fused_kernel as FK
+    from arts_tpu_torch.scene import build_stage23_case
+
+    ins = build_stage23_case(16, 300, 7, seed=5, device=dev, dtype=torch.float32)
+    for a, b in zip(FK.stage23(*ins), FK.stage23(*ins)):
+        assert torch.equal(a, b)
