@@ -9,20 +9,25 @@
 // and of arts_tpu/disort/eigen_kernel.py:
 //   fused_eigen     <- _kernel (pallas_call at :207, wrapper fused_eigen
 //                      at :252): eigen_core alone, writing k, Ek and G+-.
-// Stage 1 and fused_eigen share the device functions h12 and eigen_core
-// below; the Jacobi sweeps are csrc/jacobi.cuh's, shared with
-// csrc/eigh_jacobi.cu.
+// Stage 1 and fused_eigen share one eigen core (eigen_stage, team_sweeps
+// below); the tournament schedule and the rotation formula are
+// csrc/jacobi.cuh's, shared with csrc/eigh_jacobi.cu.
 //
 // Layout: every (frequency x Fourier mode) problem is a lane b; arrays are
 // [layer, entry, lane], so the threads of a warp, which hold neighbouring
 // lanes, read and write neighbouring addresses.
 //
-// Stage 1, one thread per (lane, layer): H1/H2 from the phase matrices,
-// the thermal particular solution (ApB/AmB solves; done first so that H1
-// is dead before the eigen stage), Cholesky of -H1, Hsym = -Lc^T H2 Lc,
-// the tournament cyclic Jacobi (6 sweeps at f32, 8 at f64) with the
-// division-safe rotation, k = sqrt(max(lambda, 1e-24)), Ek = exp(-k dtau),
-// and G+/G-.  Writes Ek, G+-, and the particular radiances.
+// Stage 1 and fused_eigen, a team of threads per (lane, layer) problem
+// (kTeamMax = 2: 64 problems per block of 128): pp/pm staged into the
+// problem's shared tiles with cp.async, H1/H2, the thermal particular
+// solution (stage 1: the ApB/AmB eliminations on the team, in registers),
+// Cholesky of -H1, Hsym = -Lc^T H2 Lc, the tournament cyclic Jacobi (6
+// sweeps at f32, 8 at f64) with the division-safe rotation, k =
+// sqrt(max(lambda, 1e-24)), Ek = exp(-k dtau), and G+/G-.  In the Jacobi
+// each thread holds the columns of M of two pairs of each round and two
+// rows of V; every round moves the rotation angles and two columns of M
+// between the threads by shuffle (team_sweeps).  Writes Ek, G+-, and the
+// particular radiances (stage 1) or k (fused_eigen).
 //
 // Stages 2+3, kTPL = 8 threads per lane (four lanes per warp), kLanes =
 // 16 lanes per block: the TPU grid walked the layers in order with W
@@ -50,11 +55,14 @@
 // repeated runs are bit-identical.
 //
 // Bound: stage 1 moves every input and output once (1.2 KB per (lane,
-// layer) in float32), so at the bench shape its memory bound is a fraction
-// of a millisecond; its arithmetic (~32 kflop per problem, mostly the
-// Jacobi sweeps) is of the same order.  What limits stage 1 in this simple
-// form is neither: a thread holds several 8 x 8 matrices, which spill from
-// registers to local memory.  Stages 2+3 move their inputs and outputs
+// layer) in float32, ~0.09 ms at the bench shape); its arithmetic (~32
+// kflop per problem, 84 % of it the Jacobi sweeps) bounds it at ~0.12 ms.
+// What holds the eigen core back is instruction issue: every rotation
+// output is a multiply and an FMA, and a round adds its shuffles, the
+// selects of the thread's own pairs and the moves, ~290 instructions per
+// thread and round at n = 8; one thread per problem issues fewer but
+// holds 128 values of M and V and hides its latency with too few warps.
+// Stages 2+3 move their inputs and outputs
 // once, plus the scratch S (written once, read once) and G+-/Ek read a
 // second time, ~620 MB at the bench shape in float32 (~0.19 ms at 3.35
 // TB/s); the least arithmetic is ~3.1 GFLOP.  Each Gauss-Jordan step is a
@@ -75,253 +83,630 @@ using async::cp_async_wait;
 using async::ld16;
 using async::st16;
 
-// Gaussian elimination without pivoting, A X = B; X overwrites B
-template <typename T, int N, int K>
-__device__ __forceinline__ void ge_solve(T (&A)[N][N], T (&B)[N][K]) {
+// ---------------------------------------------------------------------------
+// stage 1 and fused_eigen: the eigen stage, a team of threads per problem
+// ---------------------------------------------------------------------------
+
+// The design's switches; tools/stage1_variants.py times the others, and
+// the values here are the fastest measured (PERF.md).
+constexpr int kThreads1 = 128;          // threads per block
+constexpr int kTeamMax = 2;             // threads per (lane, layer) problem, at most n / 2
+constexpr bool kSeatPerThread = false;  // n threads per problem, one column each
+constexpr bool kTilesShared = true;     // H1/H2 in shared tiles, or from pp/pm at each use
+
+// Layout of the eigen kernels, in elements of T: the quadrature table, then
+// per problem three n x n tiles (H1, later Lc; H2; X: M, later V; without
+// kTilesShared no H2 tile and H1's only for Lc), the problem's stride padded
+// to TEAM (mod 32) 4-byte words so that the same entry of the warp's
+// problems falls in distinct banks.
+template <typename T, int N>
+struct E1 {
+  static constexpr int NN = N * N, NP = N / 2;
+  static constexpr int TEAM = kSeatPerThread ? N : NP < kTeamMax ? NP : kTeamMax;
+  static constexpr int S = N / TEAM;     // columns of M, and rows of V, per thread
+  static constexpr int NPB = kThreads1 / TEAM;  // problems per block
+  static constexpr int NQ = 5 * N + 2 * NN;
+  static constexpr int NT = kTilesShared ? 3 : 2;  // tiles per problem
+  static constexpr int W0 = NT * NN * int(sizeof(T)) / 4, Q = TEAM * int(sizeof(T)) / 4;
+  static constexpr int TS = (W0 + ((Q - W0) % 32 + 32) % 32) * 4 / int(sizeof(T));
+  static constexpr int SIZE = NQ + NPB * TS;
+  static_assert((TEAM == N || NP % TEAM == 0) && 32 % TEAM == 0,
+                "a thread holds whole pairs or one column, a warp whole teams");
+};
+
+// a reciprocal: in float32 the hardware approximation and one Newton step
+// (no branch to the slow path of an IEEE quotient, whose inputs, a zero,
+// denormal or infinite value, do not arise where it is used: the pivots of
+// stages 2+3's diagonally dominant blocks, sqrt(1 + t^2) >= 1, and the
+// denominator of a rotation angle, whose zero rot_fast discards), in float64
+// the IEEE quotient
+__device__ __forceinline__ float recip(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return fmaf(r, fmaf(-x, r, 1.0f), r);
+}
+__device__ __forceinline__ double recip(double x) { return 1.0 / x; }
+
+// (c, s) of a Jacobi rotation: jacobi::rot_cs (IEEE quotients and square
+// roots), or rot_fast, the same division-safe formula in float32 with the
+// hardware square root and reciprocals (sqrt.approx for the denominator;
+// recip; for c = 1/sqrt(1 + t^2) rsqrt.approx, one Newton step on the square
+// root and recip, whose residuals an FMA forms exactly, so that c keeps the
+// IEEE version's accuracy and the rotations stay orthogonal to rounding)
+// and no branch: without the slow paths of IEEE division and square root
+// (float64: rot_cs)
+__device__ __forceinline__ void rot_fast(float app, float aqq, float apq, float& c, float& s) {
+  const float d = aqq - app;
+  float root, r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(root) : "f"(d * d + 4.0f * apq * apq));
+  const float denom = fabsf(d) + root;
+  const float num = d > 0.0f ? 2.0f * apq : d < 0.0f ? -2.0f * apq : 0.0f;
+  const float t = denom > 0.0f ? num * recip(denom) : 0.0f;
+  const float u = t * t + 1.0f;
+  asm("rsqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(u));
+  const float q = u * r;                               // ~sqrt(u)
+  c = recip(fmaf(fmaf(-q, q, u), 0.5f * r, q));        // 1 / sqrt(u), one Newton step each
+  s = t * c;
+}
+__device__ __forceinline__ void rot_fast(double app, double aqq, double apq, double& c, double& s) {
+  jacobi::rot_cs(app, aqq, apq, c, s);
+}
+
+// player (index of a row and column of M) in slot s of thread k at the
+// start of a sweep, of S slots: slot 2i holds seat k S/2 + i, slot 2i + 1
+// seat n - 1 - (k S/2 + i), or with one slot seat k; after a whole sweep
+// every player is back in its seat
+template <int N, int S>
+__device__ __forceinline__ int slot_player(int k, int s) {
+  if (S == 1) return k;
+  const int a = k * (S / 2) + s / 2;
+  return s % 2 == 0 ? a : N - 1 - a;
+}
+
+// The team's tournament Jacobi (the schedule, angles and order of
+// jacobi::sweeps).  Thread k of the team holds S = n / TEAM columns of M
+// (the seats of slot_player: the two columns of each of its pairs of the
+// round, or one column), rows in seat order: row r of a column is M's row of
+// the player in seat r.  So in every round the pairs are rows (j, n - 1 - j),
+// the same for every column and thread, and a round ends with one fixed
+// renaming of the rows.  It holds rows k S .. k S + S - 1 of V, which never
+// move.  One round:
+//   1. the angles of its own pairs, from its own columns (which entries
+//      depends on k: a chain of selects over the team, no indexing); with
+//      one column, from two entries of the partner's column by shuffle;
+//   2. every pair's angle by shuffle from the thread that owns the pair;
+//   3. the row rotations of all pairs on its columns;
+//   4. its pairs' column rotations of M (with one column, the partner's
+//      column by shuffle), and all pairs' column rotations of its rows of V;
+//   5. the circle method's move, the player in seat r to seat r + 1 (seat
+//      n - 1 to 1, seat 0 stays): inside a thread a renaming, across
+//      threads two columns by shuffle (the first left seat from the thread
+//      below, the last right seat from the thread above), or with one
+//      column that column.
+// The angles are in the seat convention, s of the pair (left seat, right
+// seat): the plain (p < q) rotation with s negated where the left seat
+// holds q, which is the same rotation.
+template <typename T, int N, int TEAM>
+__device__ __forceinline__ void team_sweeps(T (&col)[N / TEAM][N], T (&vr)[N / TEAM][N], int k,
+                                            int nsweeps) {
+  constexpr int P = N, NP = N / 2, S = N / TEAM, PT = S / 2;
+  constexpr unsigned FULL = 0xffffffffu;
+#pragma unroll 1
+  for (int sw = 0; sw < nsweeps; ++sw) {
+#pragma unroll
+    for (int r = 0; r < P - 1; ++r) {
+      // 1., 2. the angles
+      T cs[PT > 0 ? PT : 1], sn[PT > 0 ? PT : 1], C[NP], Sn[NP];
+      if constexpr (S == 1) {
+        // seat k; its pair j = min(k, n - 1 - k) is (left seat j, right seat
+        // n - 1 - j); both threads of the pair compute its angle
+        T dk = T(0), ok = T(0);
+        bool lo = true;
+#pragma unroll
+        for (int kk = 0; kk < TEAM; ++kk) {
+          if (kk == k) {
+            dk = col[0][kk];
+            ok = col[0][P - 1 - kk];
+            const int j = kk < NP ? kk : P - 1 - kk;
+            lo = jacobi::seat(P, r, j) < jacobi::seat(P, r, P - 1 - j);
+          }
+        }
+        const T dp = __shfl_sync(FULL, dk, P - 1 - k, TEAM);
+        const T op = __shfl_sync(FULL, ok, P - 1 - k, TEAM);
+        const bool left = k < NP;
+        const T maa = left ? dk : dp, mbb = left ? dp : dk;
+        const T mab = lo ? (left ? op : ok) : (left ? ok : op);  // M[p][q], p < q
+        T c, s;
+        rot_fast(lo ? maa : mbb, lo ? mbb : maa, mab, c, s);
+        cs[0] = c;
+        sn[0] = lo ? s : -s;
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          C[j] = __shfl_sync(FULL, cs[0], j, TEAM);
+          Sn[j] = __shfl_sync(FULL, sn[0], j, TEAM);
+        }
+      } else {
+        // the thread's pairs: seats a = k PT + i (slot 2i), b = n - 1 - a
+#pragma unroll
+        for (int i = 0; i < PT; ++i) {
+          T maa = T(0), mbb = T(0), mab = T(0);
+          bool lo = true;
+#pragma unroll
+          for (int kk = 0; kk < TEAM; ++kk) {
+            const int a = kk * PT + i, bs = P - 1 - a;
+            const bool l0 = jacobi::seat(P, r, a) < jacobi::seat(P, r, bs);
+            if (kk == k) {
+              maa = col[2 * i][a];
+              mbb = col[2 * i + 1][bs];
+              mab = l0 ? col[2 * i + 1][a] : col[2 * i][bs];  // M[p][q], p < q
+              lo = l0;
+            }
+          }
+          T c, s;
+          rot_fast(lo ? maa : mbb, lo ? mbb : maa, mab, c, s);
+          cs[i] = c;
+          sn[i] = lo ? s : -s;
+        }
+        // pair j's angle from thread j / PT, slot j % PT
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          if constexpr (TEAM == 1) {
+            C[j] = cs[j];
+            Sn[j] = sn[j];
+          } else {
+            C[j] = __shfl_sync(FULL, cs[j % PT], j / PT, TEAM);
+            Sn[j] = __shfl_sync(FULL, sn[j % PT], j / PT, TEAM);
+          }
+        }
+      }
+      // 3. row rotations
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          const T x = col[s][j], y = col[s][P - 1 - j];
+          col[s][j] = C[j] * x - Sn[j] * y;
+          col[s][P - 1 - j] = Sn[j] * x + C[j] * y;
+        }
+      }
+      // 4. column rotations: the thread's pairs of M, all pairs of its rows of V
+      if constexpr (S == 1) {
+        const T sg = k < NP ? -sn[0] : sn[0];
+#pragma unroll
+        for (int x = 0; x < P; ++x) {
+          const T v = __shfl_sync(FULL, col[0][x], P - 1 - k, TEAM);
+          col[0][x] = cs[0] * col[0][x] + sg * v;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < PT; ++i) {
+#pragma unroll
+          for (int x = 0; x < P; ++x) {
+            const T u = col[2 * i][x], v = col[2 * i + 1][x];
+            col[2 * i][x] = cs[i] * u - sn[i] * v;
+            col[2 * i + 1][x] = sn[i] * u + cs[i] * v;
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          const int pa = jacobi::seat(P, r, j), pb = jacobi::seat(P, r, P - 1 - j);
+          const T u = vr[m][pa], v = vr[m][pb];
+          vr[m][pa] = C[j] * u - Sn[j] * v;
+          vr[m][pb] = Sn[j] * u + C[j] * v;
+        }
+      }
+      // 5. the move to the next round's seats
+      T nw[S][P];
+      if constexpr (S == 1) {
+        const int src = k == 1 ? P - 1 : k == 0 ? 0 : k - 1;
+#pragma unroll
+        for (int x = 0; x < P; ++x) nw[0][x] = __shfl_sync(FULL, col[0][x], src, TEAM);
+      } else {
+#pragma unroll
+        for (int x = 0; x < P; ++x) {
+          // the first left seat of thread k takes the last left seat of
+          // thread k - 1 (seat 1 takes seat n - 1: thread 0's first right
+          // seat when PT = 1); the last right seat takes the first right
+          // seat of thread k + 1
+          T up = col[0][x], dn = col[S - 2][x];
+          if constexpr (TEAM > 1) {
+            up = __shfl_up_sync(FULL, PT == 1 && k == 0 ? col[1][x] : col[S - 2][x], 1, TEAM);
+            dn = __shfl_down_sync(FULL, col[1][x], 1, TEAM);
+          }
+          nw[0][x] = k == 0 ? col[0][x] : up;
+          if constexpr (PT > 1) nw[2][x] = k == 0 ? col[1][x] : col[0][x];
+#pragma unroll
+          for (int i = 2; i < PT; ++i) nw[2 * i][x] = col[2 * i - 2][x];
+#pragma unroll
+          for (int i = 0; i + 1 < PT; ++i) nw[2 * i + 1][x] = col[2 * i + 3][x];
+          nw[S - 1][x] = k == TEAM - 1 ? col[S - 2][x] : dn;
+        }
+      }
+      // rows follow their players: row r + 1 <- r, row 1 <- n - 1
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        col[s][0] = nw[s][0];
+        col[s][1] = nw[s][P - 1];
+#pragma unroll
+        for (int x = 2; x < P; ++x) col[s][x] = nw[s][x - 1];
+      }
+    }
+  }
+}
+
+// Gaussian elimination without pivoting, A X = B, on the team in registers:
+// thread k holds rows k + TEAM m of A and B (slot m).  Step i hands the
+// pivot row to the team by shuffle from its thread (i % TEAM, slot i / TEAM,
+// both fixed at compile time); every thread scales it and eliminates its
+// rows below it, and the pivot row's thread keeps it scaled.  The
+// back-substitution hands each solved row to the team the same way, so that
+// every thread ends with all of X.  The operations and their order are those
+// of one thread's elimination (the plain version's _ge_solve).
+template <typename T, int N, int K, int TEAM>
+__device__ __forceinline__ void ge_team(T (&A)[N / TEAM][N], T (&B)[N / TEAM][K], T (&X)[N][K],
+                                        int k) {
+  constexpr int R = N / TEAM;
+  auto bcast = [](T v, int src) {
+    if constexpr (TEAM == 1) return v;
+    else return __shfl_sync(0xffffffffu, v, src, TEAM);
+  };
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const T inv = T(1) / A[i][i];
+    const int o = i % TEAM, m0 = i / TEAM;
+    const T inv = T(1) / bcast(A[m0][i], o);
+    T u[N], x[K];
 #pragma unroll
-    for (int j = i + 1; j < N; ++j) A[i][j] *= inv;
+    for (int j = i + 1; j < N; ++j) u[j] = bcast(A[m0][j], o) * inv;
 #pragma unroll
-    for (int j = 0; j < K; ++j) B[i][j] *= inv;
+    for (int j = 0; j < K; ++j) x[j] = bcast(B[m0][j], o) * inv;
+    if (k == o) {
 #pragma unroll
-    for (int r = i + 1; r < N; ++r) {
-      const T f = A[r][i];
+      for (int j = i + 1; j < N; ++j) A[m0][j] = u[j];
 #pragma unroll
-      for (int j = i + 1; j < N; ++j) A[r][j] -= f * A[i][j];
+      for (int j = 0; j < K; ++j) B[m0][j] = x[j];
+    }
 #pragma unroll
-      for (int j = 0; j < K; ++j) B[r][j] -= f * B[i][j];
+    for (int m = 0; m < R; ++m) {
+      if (k + TEAM * m > i) {
+        const T f = A[m][i];
+#pragma unroll
+        for (int j = i + 1; j < N; ++j) A[m][j] -= f * u[j];
+#pragma unroll
+        for (int j = 0; j < K; ++j) B[m][j] -= f * x[j];
+      }
     }
   }
 #pragma unroll
   for (int i = N - 1; i >= 0; --i) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      T acc = B[i][j];
+      T acc = B[i / TEAM][j];
 #pragma unroll
-      for (int r = i + 1; r < N; ++r) acc -= A[i][r] * B[r][j];
-      B[i][j] = acc;
+      for (int r = i + 1; r < N; ++r) acc -= A[i / TEAM][r] * X[r][j];
+      X[i][j] = bcast(acc, i % TEAM);
     }
   }
 }
 
-// qtab (arts_tpu_torch/disort/fused_kernel.py:quad_table): 1/mu, 1/E,
-// 1/(mu F), F^2/w, w/F (n each), then F_i F_j and -w_j/(F_i F_j mu_i)
-template <typename T, int N>
-__device__ __forceinline__ void load_qtab(const T* __restrict__ qtab, T* q) {
-  constexpr int NQ = 5 * N + 2 * N * N;
-  for (int i = threadIdx.x; i < NQ; i += blockDim.x) q[i] = qtab[i];
-  __syncthreads();
+// copy the problem's pp and pm (at mat0 of [layer, n*n, lane]) into its H1
+// and H2 tiles: thread k of the team copies entries k + TEAM m, all in
+// flight at once (cp.async, no registers held)
+template <typename T, int N, int TEAM>
+__device__ __forceinline__ void stage_pp_pm(const T* __restrict__ pp, const T* __restrict__ pm,
+                                            long mat0, long B, int k, T* h1, T* h2) {
+#pragma unroll
+  for (int m = 0; m < N * N / TEAM; ++m) {
+    const int e = k + TEAM * m;
+    cp_async<sizeof(T)>(h1 + e, pp + mat0 + static_cast<long>(e) * B);
+    cp_async<sizeof(T)>(h2 + e, pm + mat0 + static_cast<long>(e) * B);
+  }
+  cp_async_commit();
 }
 
-// H1/H2 = F (c (Pp -/+ Pm) - diag(1/w)) F for the problem at mat0
-template <typename T, int N>
-__device__ __forceinline__ void h12(const T* __restrict__ pp, const T* __restrict__ pm,
-                                    long mat0, long B, T c, const T* ff, const T* dg,
-                                    T (&H1)[N][N], T (&H2)[N][N]) {
+// H1/H2 = F (c (Pp -/+ Pm) - diag(1/w)) F in place over the staged pp/pm,
+// thread k of the team taking the entries it staged
+template <typename T, int N, int TEAM>
+__device__ __forceinline__ void h12(T c, const T* ff, const T* dg, int k, T* h1, T* h2) {
+  cp_async_wait<0>();
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const T a = pp[mat0 + static_cast<long>(i * N + j) * B];
-      const T m = pm[mat0 + static_cast<long>(i * N + j) * B];
-      const T ffc = ff[i * N + j] * c;
-      const T d = i == j ? dg[i] : T(0);
-      H1[i][j] = ffc * (a - m) - d;
-      H2[i][j] = ffc * (a + m) - d;
-    }
-  }
-}
-
-// The eigen stage of one problem: Cholesky of -H1, Hsym = -Lc^T H2 Lc, the
-// tournament Jacobi, k = sqrt(max(lambda, 1e-24)), Ek = exp(-k dtau) and
-// G+-, written at vec0 ([layer, n, lane]) and mat0 ([layer, n*n, lane]).
-// With WRITE_K, k itself is written to kout as well.
-template <typename T, int N, bool WRITE_K>
-__device__ __forceinline__ void eigen_core(const T (&H1)[N][N], const T (&H2)[N][N],
-                                           T dt, const T* ei, const T* ri, const T* wF,
-                                           int sweeps, long vec0, long mat0, long B,
-                                           T* __restrict__ kout, T* __restrict__ ek,
-                                           T* __restrict__ gp, T* __restrict__ gm) {
-  // Lc = cholesky(-H1), lower; the clamp keeps omega -> 1 finite
-  T Lc[N][N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    T s = -H1[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) s -= Lc[j][k] * Lc[j][k];
-    const T d = sqrt(s > T(1e-30) ? s : T(1e-30));
-    Lc[j][j] = d;
-    const T dinv = T(1) / d;
-#pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      T s2 = -H1[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s2 -= Lc[i][k] * Lc[j][k];
-      Lc[i][j] = s2 * dinv;
-    }
-  }
-
-  // M = Hsym = -Lc^T (H2 Lc), symmetric
-  T M[N][N];
-  {
-    T Tm[N][N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        T s = H2[i][m] * Lc[m][m];
-#pragma unroll
-        for (int k = m + 1; k < N; ++k) s += H2[i][k] * Lc[k][m];
-        Tm[i][m] = s;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int m = i; m < N; ++m) {
-        T s = Lc[i][i] * Tm[i][m];
-#pragma unroll
-        for (int j = i + 1; j < N; ++j) s += Lc[j][i] * Tm[j][m];
-        M[i][m] = -s;
-        M[m][i] = -s;
-      }
-    }
-  }
-
-  T V[N][N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) V[i][j] = i == j ? T(1) : T(0);
-  }
-  jacobi::sweeps<T, N>(M, V, N, sweeps);
-
-  T kk[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    kk[j] = sqrt(M[j][j] > T(1e-24) ? M[j][j] : T(1e-24));
-    if (WRITE_K) kout[vec0 + static_cast<long>(j) * B] = kk[j];
-    ek[vec0 + static_cast<long>(j) * B] = exp(-kk[j] * dt);
-  }
-
-  // Y = diag(1/E) Lc V, in place over V (row i reads rows <= i)
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      T s = Lc[i][i] * V[i][j];
-#pragma unroll
-      for (int m = 0; m < i; ++m) s += Lc[i][m] * V[m][j];
-      V[i][j] = ei[i] * s;
-    }
-  }
-  // D = diag(1/(mu F)) H2 diag(w/F) Y / k;  G+- = (Y +- D)/2
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      T s = wF[0] * H2[i][0] * V[0][j];
-#pragma unroll
-      for (int m = 1; m < N; ++m) s += wF[m] * H2[i][m] * V[m][j];
-      const T D = ri[i] * s / kk[j];
-      gp[mat0 + static_cast<long>(i * N + j) * B] = T(0.5) * (V[i][j] + D);
-      gm[mat0 + static_cast<long>(i * N + j) * B] = T(0.5) * (V[i][j] - D);
-    }
+  for (int m = 0; m < N * N / TEAM; ++m) {
+    const int e = k + TEAM * m, i = e / N, j = e % N;
+    const T a = h1[e];
+    const T b = h2[e];
+    const T ffc = ff[e] * c;
+    const T d = i == j ? dg[i] : T(0);
+    h1[e] = ffc * (a - b) - d;
+    h2[e] = ffc * (a + b) - d;
   }
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(128)
-stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
-              const T* __restrict__ om, const T* __restrict__ dtau,
-              const T* __restrict__ tb0, const T* __restrict__ tb1,
-              const T* __restrict__ qtab, T* __restrict__ ek,
-              T* __restrict__ gp, T* __restrict__ gm, T* __restrict__ ut,
-              T* __restrict__ vt, T* __restrict__ ub, T* __restrict__ vb,
-              int L, int B, int sweeps) {
-  __shared__ T q[5 * N + 2 * N * N];
-  load_qtab<T, N>(qtab, q);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+// One (lane, layer) problem of stage 1 (THERMAL) or of fused_eigen (WRITE_K)
+// on a team of E1::TEAM threads: pp/pm staged and turned into H1/H2 in the
+// problem's tiles, the thermal particular solution (ge_team; thread k
+// stores rows k + TEAM m), Cholesky of -H1 (every thread; the tile of H1
+// becomes Lc, zero above the diagonal), Hsym = -Lc^T H2 Lc (each thread its
+// columns, the upper part mirrored through the X tile), the team's Jacobi,
+// k = sqrt(max(lambda, 1e-24)), Ek = exp(-k dtau), then V through the X
+// tile and, for the thread's columns j, Y = diag(1/E) Lc V[:, j] and G+- =
+// (Y +- D)/2 with D = diag(1/(mu F)) H2 diag(w/F) Y (1/k_j).  Arrays are
+// [layer, entry, lane]; lanes past B compute on the last lane's data and
+// store nothing.
+template <typename T, int N, bool THERMAL, bool WRITE_K>
+__device__ __forceinline__ void eigen_stage(
+    const T* __restrict__ pp, const T* __restrict__ pm, const T* __restrict__ om,
+    const T* __restrict__ dtau, const T* __restrict__ tb0, const T* __restrict__ tb1,
+    const T* __restrict__ qtab, T* __restrict__ kout, T* __restrict__ ek, T* __restrict__ gp,
+    T* __restrict__ gm, T* __restrict__ ut, T* __restrict__ vt, T* __restrict__ ub,
+    T* __restrict__ vb, int B, int sweeps) {
+  using C = E1<T, N>;
+  constexpr int NN = C::NN, TEAM = C::TEAM, S = C::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const q = reinterpret_cast<T*>(smem);
+  const int pb = threadIdx.x / TEAM, k = threadIdx.x % TEAM;
+  const long b = static_cast<long>(blockIdx.x) * C::NPB + pb;
+  const bool valid = b < B;
+  const long bc = valid ? b : B - 1;
   const int l = blockIdx.y;
-  if (b >= B) return;
+  T* const lt = q + C::NQ + pb * C::TS;  // pp, H1, then Lc
+  T* const h2 = lt + NN;                 // pm, then H2
+  T* const xt = lt + (C::NT - 1) * NN;  // M, then V
+  const long mat0 = static_cast<long>(l) * NN * B + bc;
+  if (kTilesShared) stage_pp_pm<T, N, TEAM>(pp, pm, mat0, B, k, lt, h2);
+  for (int i = threadIdx.x; i < C::NQ; i += kThreads1) q[i] = qtab[i];
   const T* imu = q;
   const T* ei = q + N;
   const T* ri = q + 2 * N;
   const T* dg = q + 3 * N;
   const T* wF = q + 4 * N;
   const T* ff = q + 5 * N;
-  const T* sc = q + 5 * N + N * N;
-
-  const long mat0 = static_cast<long>(l) * N * N * B + b;
+  const T* sc = q + 5 * N + NN;
+  const long mats = static_cast<long>(l) * NN * B + b;  // stores
   const long vec0 = static_cast<long>(l) * N * B + b;
-  const long one0 = static_cast<long>(l) * B + b;
+  const long one0 = static_cast<long>(l) * B + bc;
   const T dt = dtau[one0];
-  T H1[N][N], H2[N][N];
-  h12<T, N>(pp, pm, mat0, B, T(0.5) * om[one0], ff, dg, H1, H2);
+  const T c = T(0.5) * om[one0];
+  __syncthreads();  // the quadrature table
+  if (kTilesShared) h12<T, N, TEAM>(c, ff, dg, k, lt, h2);
+  __syncwarp();
+  // entry e of H2 (plus) or H1: from its tile, or from pp/pm at each use
+  auto H = [&](int e, bool plus) -> T {
+    if (kTilesShared) return plus ? h2[e] : lt[e];
+    const T u = pp[mat0 + static_cast<long>(e) * B];
+    const T v = pm[mat0 + static_cast<long>(e) * B];
+    const T ffc = ff[e] * c;
+    const T d = e / N == e % N ? dg[e / N] : T(0);
+    return plus ? ffc * (u + v) - d : ffc * (u - v) - d;
+  };
 
-  // thermal particular solution: q1 = AmB^-1 tb1/mu, p+r = 2 AmB^-1 tb0/mu,
-  // p-r = 2 ApB^-1 q1, with ApB/AmB = sc * H1/H2
-  {
+  if constexpr (THERMAL) {
+    // q1 = AmB^-1 tb1/mu, p+r = 2 AmB^-1 tb0/mu (Q), p-r = 2 ApB^-1 q1 (X),
+    // with ApB/AmB = sc * H1/H2; thread k stores rows k + TEAM m
+    constexpr int R = N / TEAM;
     const T t1 = tb1[one0];
     const T t0 = tb0[one0];
-    T A[N][N], G[N][2];
+    T A[R][N], G[R][2], Q[N][2];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int m = 0; m < R; ++m) {
+      const int r = k + TEAM * m;
 #pragma unroll
-      for (int j = 0; j < N; ++j) A[i][j] = sc[i * N + j] * H2[i][j];
-      G[i][0] = t1 * imu[i];
-      G[i][1] = t0 * imu[i];
+      for (int j = 0; j < N; ++j) A[m][j] = sc[r * N + j] * H(r * N + j, true);
+      G[m][0] = t1 * imu[r];
+      G[m][1] = t0 * imu[r];
     }
-    ge_solve<T, N, 2>(A, G);
-    T X[N][1];
+    ge_team<T, N, 2, TEAM>(A, G, Q, k);
+    T Y[R][1], X[N][1];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int m = 0; m < R; ++m) {
+      const int r = k + TEAM * m;
 #pragma unroll
-      for (int j = 0; j < N; ++j) A[i][j] = sc[i * N + j] * H1[i][j];
-      X[i][0] = G[i][0];
+      for (int j = 0; j < N; ++j) A[m][j] = sc[r * N + j] * H(r * N + j, false);
+#pragma unroll
+      for (int t = 0; t < TEAM; ++t)
+        if (t == k) Y[m][0] = Q[t + TEAM * m][0];
     }
-    ge_solve<T, N, 1>(A, X);
+    ge_team<T, N, 1, TEAM>(A, Y, X, k);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const T ppr = T(2) * G[i][1];
-      const T pmr = T(2) * X[i][0];
-      const T p0 = T(0.5) * (ppr + pmr);
-      const T r0 = T(0.5) * (ppr - pmr);
-      const T q1d = G[i][0] * dt;
-      ut[vec0 + static_cast<long>(i) * B] = p0;
-      vt[vec0 + static_cast<long>(i) * B] = r0;
-      ub[vec0 + static_cast<long>(i) * B] = p0 + q1d;
-      vb[vec0 + static_cast<long>(i) * B] = r0 + q1d;
+      if (valid && i % TEAM == k) {
+        const T ppr = T(2) * Q[i][1];
+        const T pmr = T(2) * X[i][0];
+        const T p0 = T(0.5) * (ppr + pmr);
+        const T r0 = T(0.5) * (ppr - pmr);
+        const T q1d = Q[i][0] * dt;
+        ut[vec0 + static_cast<long>(i) * B] = p0;
+        vt[vec0 + static_cast<long>(i) * B] = r0;
+        ub[vec0 + static_cast<long>(i) * B] = p0 + q1d;
+        vb[vec0 + static_cast<long>(i) * B] = r0 + q1d;
+      }
     }
   }
 
-  eigen_core<T, N, false>(H1, H2, dt, ei, ri, wF, sweeps, vec0, mat0, B, nullptr,
-                          ek, gp, gm);
+  // Lc = cholesky(-H1), lower; the clamp keeps omega -> 1 finite
+  {
+    T Lc[N][N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      T s = -H(j * N + j, false);
+#pragma unroll
+      for (int kk = 0; kk < j; ++kk) s -= Lc[j][kk] * Lc[j][kk];
+      const T d = sqrt(s > T(1e-30) ? s : T(1e-30));
+      Lc[j][j] = d;
+      const T dinv = T(1) / d;
+#pragma unroll
+      for (int i = j + 1; i < N; ++i) {
+        T s2 = -H(i * N + j, false);
+#pragma unroll
+        for (int kk = 0; kk < j; ++kk) s2 -= Lc[i][kk] * Lc[j][kk];
+        Lc[i][j] = s2 * dinv;
+      }
+    }
+    __syncwarp();  // the team has read H1
+#pragma unroll
+    for (int e = 0; e < NN; ++e)
+      if (e % TEAM == k) lt[e] = e % N <= e / N ? Lc[e / N][e % N] : T(0);
+    __syncwarp();
+  }
+
+  // M = Hsym = -Lc^T (H2 Lc): the thread's columns m (Lc's columns first
+  // held in col), each row of H2 and column of Lc read once for all of
+  // them; the upper part (rows i <= m) with its mirror into the X tile.  The
+  // sums run in the order of the plain version (terms of Lc's zero upper
+  // part add zero)
+  T col[S][N];
+  {
+    int ms[S];
+    T tm[S][N];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      ms[s] = slot_player<N, S>(k, s);
+#pragma unroll
+      for (int kk = 0; kk < N; ++kk) col[s][kk] = lt[kk * N + ms[s]];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      T h[N];
+#pragma unroll
+      for (int kk = 0; kk < N; ++kk) h[kk] = H(i * N + kk, true);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        T a = T(0);
+#pragma unroll
+        for (int kk = 0; kk < N; ++kk) a += h[kk] * col[s][kk];
+        tm[s][i] = a;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      T lc[N];
+#pragma unroll
+      for (int j = i; j < N; ++j) lc[j] = lt[j * N + i];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        T a = lc[i] * tm[s][i];
+#pragma unroll
+        for (int j = i + 1; j < N; ++j) a += lc[j] * tm[s][j];
+        if (i <= ms[s]) {
+          xt[i * N + ms[s]] = -a;
+          xt[ms[s] * N + i] = -a;
+        }
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int m = slot_player<N, S>(k, s);
+#pragma unroll
+    for (int i = 0; i < N; ++i) col[s][i] = xt[i * N + m];
+  }
+  T vr[S][N];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) vr[s][j] = k * S + s == j ? T(1) : T(0);
+  }
+  team_sweeps<T, N, TEAM>(col, vr, k, sweeps);
+
+  // the eigenvalue of each of the thread's columns (M's diagonal)
+  T kk[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    T d = T(0);
+#pragma unroll
+    for (int t = 0; t < TEAM; ++t)
+      if (t == k) d = col[s][slot_player<N, S>(t, s)];
+    kk[s] = sqrt(d > T(1e-24) ? d : T(1e-24));
+  }
+  __syncwarp();  // the team has read M
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) xt[(k * S + s) * N + j] = vr[s][j];
+  }
+  __syncwarp();
+  // per row i, for all the thread's columns j at once (each row of Lc and
+  // of wF H2 read once): Y = diag(1/E) Lc V[:, j], then D = diag(1/(mu F))
+  // H2 diag(w/F) Y (1/k_j) and G+- = (Y +- D)/2
+  int js[S];
+  T v[S][N], y[S][N], ik[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    js[s] = slot_player<N, S>(k, s);
+    ik[s] = T(1) / kk[s];
+    if (valid) {
+      if (WRITE_K) kout[vec0 + static_cast<long>(js[s]) * B] = kk[s];
+      ek[vec0 + static_cast<long>(js[s]) * B] = exp(-kk[s] * dt);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[s][i] = xt[i * N + js[s]];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T lr[N];
+#pragma unroll
+    for (int m = 0; m <= i; ++m) lr[m] = lt[i * N + m];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      T a = lr[i] * v[s][i];
+#pragma unroll
+      for (int m = 0; m < i; ++m) a += lr[m] * v[s][m];
+      y[s][i] = ei[i] * a;
+    }
+  }
+  // Y over the thread's own columns of V in the X tile, for the rows of
+  // the loop below, whose index is not known at compile time
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) xt[i * N + js[s]] = y[s][i];
+  }
+#pragma unroll 1
+  for (int i = 0; i < N; ++i) {
+    T wh[N];
+#pragma unroll
+    for (int m = 0; m < N; ++m) wh[m] = wF[m] * H(i * N + m, true);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      T a = wh[0] * y[s][0];
+#pragma unroll
+      for (int m = 1; m < N; ++m) a += wh[m] * y[s][m];
+      const T D = ri[i] * a * ik[s];
+      const T yi = xt[i * N + js[s]];
+      if (valid) {
+        gp[mats + static_cast<long>(i * N + js[s]) * B] = T(0.5) * (yi + D);
+        gm[mats + static_cast<long>(i * N + js[s]) * B] = T(0.5) * (yi - D);
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads1)
+stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
+              const T* __restrict__ om, const T* __restrict__ dtau,
+              const T* __restrict__ tb0, const T* __restrict__ tb1,
+              const T* __restrict__ qtab, T* __restrict__ ek,
+              T* __restrict__ gp, T* __restrict__ gm, T* __restrict__ ut,
+              T* __restrict__ vt, T* __restrict__ ub, T* __restrict__ vb,
+              int B, int sweeps) {
+  eigen_stage<T, N, true, false>(pp, pm, om, dtau, tb0, tb1, qtab, nullptr, ek, gp, gm, ut, vt,
+                                 ub, vb, B, sweeps);
 }
 
 // the standalone eigen stage: stage 1 without the particular solution,
-// writing k as well; the same [layer, entry, lane] layout
+// writing k as well
 template <typename T, int N>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads1)
 fused_eigen_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
                    const T* __restrict__ om, const T* __restrict__ dtau,
                    const T* __restrict__ qtab, T* __restrict__ k,
                    T* __restrict__ ek, T* __restrict__ gp, T* __restrict__ gm,
-                   int L, int B, int sweeps) {
-  __shared__ T q[5 * N + 2 * N * N];
-  load_qtab<T, N>(qtab, q);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = blockIdx.y;
-  if (b >= B) return;
-  const long mat0 = static_cast<long>(l) * N * N * B + b;
-  const long vec0 = static_cast<long>(l) * N * B + b;
-  const long one0 = static_cast<long>(l) * B + b;
-  T H1[N][N], H2[N][N];
-  h12<T, N>(pp, pm, mat0, B, T(0.5) * om[one0], q + 5 * N, q + 3 * N, H1, H2);
-  eigen_core<T, N, true>(H1, H2, dtau[one0], q + N, q + 2 * N, q + 4 * N, sweeps,
-                         vec0, mat0, B, k, ek, gp, gm);
+                   int B, int sweeps) {
+  eigen_stage<T, N, false, true>(pp, pm, om, dtau, nullptr, nullptr, qtab, k, ek, gp, gm,
+                                 nullptr, nullptr, nullptr, nullptr, B, sweeps);
 }
 
 // ---------------------------------------------------------------------------
@@ -381,17 +766,6 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int l, int B, b
       cp_async<sizeof(T)>(dst + r, src + (static_cast<long>(l) * ROWS + r) * B);
   }
 }
-
-// the pivot's reciprocal: in float32 the hardware approximation and one
-// Newton step (no branch to the slow path of an IEEE quotient, whose
-// inputs, a zero, denormal or infinite pivot, do not arise in these
-// diagonally dominant blocks), in float64 the IEEE quotient
-__device__ __forceinline__ float recip(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return fmaf(r, fmaf(-x, r, 1.0f), r);
-}
-__device__ __forceinline__ double recip(double x) { return 1.0 / x; }
 
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads23, sizeof(T) == 4 ? 2 : 1)
@@ -682,18 +1056,30 @@ stage23_kernel(const T* __restrict__ gp, const T* __restrict__ gm,
   }
 }
 
+// the eigen kernels' dynamic shared memory, with the attribute set where
+// it passes the default 48 KB
+template <typename T, int N, typename K>
+int eigen_smem(K kernel, size_t& smem) {
+  smem = E1<T, N>::SIZE * sizeof(T);
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
 template <typename T, int N>
 int launch_stage1(const void* const* a, void* const* o, int L, int B,
                   int sweeps, cudaStream_t s) {
-  const dim3 grid((B + 127) / 128, L);
-  stage1_kernel<T, N><<<grid, 128, 0, s>>>(
+  size_t smem;
+  if (const int e = eigen_smem<T, N>(stage1_kernel<T, N>, smem)) return e;
+  const dim3 grid((B + E1<T, N>::NPB - 1) / E1<T, N>::NPB, L);
+  stage1_kernel<T, N><<<grid, kThreads1, smem, s>>>(
       static_cast<const T*>(a[0]), static_cast<const T*>(a[1]),
       static_cast<const T*>(a[2]), static_cast<const T*>(a[3]),
       static_cast<const T*>(a[4]), static_cast<const T*>(a[5]),
       static_cast<const T*>(a[6]), static_cast<T*>(o[0]),
       static_cast<T*>(o[1]), static_cast<T*>(o[2]), static_cast<T*>(o[3]),
       static_cast<T*>(o[4]), static_cast<T*>(o[5]), static_cast<T*>(o[6]),
-      L, B, sweeps);
+      B, sweeps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -747,12 +1133,14 @@ int stage23(const void* gp, const void* gm, const void* ek, const void* rhs,
 template <typename T, int N>
 int launch_eigen(const void* const* a, void* const* o, int L, int B, int sweeps,
                  cudaStream_t s) {
-  const dim3 grid((B + 127) / 128, L);
-  fused_eigen_kernel<T, N><<<grid, 128, 0, s>>>(
+  size_t smem;
+  if (const int e = eigen_smem<T, N>(fused_eigen_kernel<T, N>, smem)) return e;
+  const dim3 grid((B + E1<T, N>::NPB - 1) / E1<T, N>::NPB, L);
+  fused_eigen_kernel<T, N><<<grid, kThreads1, smem, s>>>(
       static_cast<const T*>(a[0]), static_cast<const T*>(a[1]),
       static_cast<const T*>(a[2]), static_cast<const T*>(a[3]),
       static_cast<const T*>(a[4]), static_cast<T*>(o[0]), static_cast<T*>(o[1]),
-      static_cast<T*>(o[2]), static_cast<T*>(o[3]), L, B, sweeps);
+      static_cast<T*>(o[2]), static_cast<T*>(o[3]), B, sweeps);
   return static_cast<int>(cudaGetLastError());
 }
 

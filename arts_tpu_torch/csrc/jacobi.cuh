@@ -1,6 +1,7 @@
-// Tournament cyclic Jacobi for one small symmetric matrix per thread,
-// shared by csrc/eigh_jacobi.cu (the batched eigh) and csrc/disort_fused.cu
-// (the DISORT eigen stage).  The schedule and rotation are those of
+// Tournament cyclic Jacobi for one small symmetric matrix per thread, the
+// sweeps of csrc/eigh_jacobi.cu (the batched eigh); csrc/disort_fused.cu
+// (the DISORT eigen stage, a team of threads per matrix) shares the
+// schedule (seat) and the rotation (rot_cs).  Both are those of
 // arts_tpu/ops/eigh_jacobi.py (_tournament, _rot_cs).
 #pragma once
 

@@ -6,7 +6,8 @@ Every (frequency x Fourier mode) problem is a lane, lane = m * F + f;
 tensors are laid out [layer, entry, lane] so that neighbouring threads
 read neighbouring lanes.
 
-  stage 1  (kernel `disort_stage1`, one thread per (lane, layer)):
+  stage 1  (kernel `disort_stage1`, a team of n/2 threads per (lane,
+           layer) problem, sharing one eigen core with fused_eigen):
            phase matrices -> H1/H2 -> Cholesky(-H1) -> Hsym = -Lc^T H2 Lc
            -> tournament cyclic Jacobi -> k, Ek = exp(-k dtau), G+/G- and
            the thermal particular solution at the layer top and bottom.

@@ -8,7 +8,8 @@ surface.  build_zeeman_inputs is bench.py's Zeeman stage on that scene.
 build_cloud_retrieval is an OEM retrieval of cloud extinction, single
 scattering albedo and surface temperature in a cloudy microwave window.
 build_stage23_case gives the DISORT stage 2+3 kernel random problems on
-which its elimination shows.
+which its elimination shows, build_stage1_case the stage 1 kernel random
+scattering problems on which its Jacobi sweeps show.
 """
 
 import dataclasses
@@ -22,6 +23,7 @@ from .atm.field import hydrostatic_pressure
 from .atm.standard import standard_atmosphere
 from .disort import DisortInput
 from .disort import fused_kernel as FK
+from .disort.quadrature import double_gauss, lambda_tables
 from .disort.solver import solve_terms
 from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky
 from .io.hitran import read_par, zeeman_catalog_from_par
@@ -137,6 +139,34 @@ def build_stage23_case(nquad, B, L, seed, device=None, dtype=None):
     ek, gp, gm, ut, vt, ub, vb = FK.stage1_plain(*s1, 8)
     rhs, rsurf = FK.stage23_inputs(ut, vt, ub, vb, tm["rsurf"], tm["b_neg"], tm["rhs_surf"])
     return tuple(x.to(dt).contiguous() for x in (gp, gm, ek, rhs, rsurf, ut, vt, ub, vb))
+
+
+def build_stage1_case(nquad, B, L, seed, device=None, dtype=None):
+    """The stage 1 inputs (pp, pm, om, dtau, tb0, tb1, qtab; see
+    fused_kernel.stage1_inputs) of B random scattering problems of L
+    layers, nquad streams, one Fourier mode: single scattering albedo
+    0.05-0.95, Henyey-Greenstein moments with g 0-0.85, optical depth
+    1e-3-1.5 and the thermal terms (1 - omega)(b0, b1) with b0 0.5-2 and
+    b1 -1-1.  So H1 and H2 are far from diagonal and the Jacobi sweeps
+    turn the eigenvectors away from the coordinate axes (the sine of the
+    angle to the nearest axis has a median of ~0.2); in build_scene's
+    layers the cloud is nearly black against the gas and they are
+    diagonal to ~1e-3.  Built in float64, then cast to dtype."""
+    dev, dt = resolve(device, dtype)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    n = nquad // 2
+    mu, w = double_gauss(n)
+    lam, sign = lambda_tables(1, nquad, n)
+    omega = rng.uniform(0.05, 0.95, (B, L))
+    g = rng.uniform(0.0, 0.85, (B, L))
+    legs = (2 * np.arange(nquad) + 1) * g[..., None] ** np.arange(nquad)
+    src = (1.0 - omega)[:, None, :]
+    s1 = FK.stage1_inputs(t(legs), t(omega), t(rng.uniform(1e-3, 1.5, (B, L))),
+                          t(src * rng.uniform(0.5, 2.0, (B, 1, L))),
+                          t(src * rng.uniform(-1.0, 1.0, (B, 1, L))),
+                          lam=lam, sign=sign, mu=mu, w=w)
+    return tuple(x.to(dt).contiguous() for x in s1)
 
 
 def window_scene(n_lev=51, device=None, dtype=None):

@@ -15,11 +15,14 @@
 3. holds the two DISORT kernels against their plain versions at the full
    4096 x 59 x n=8 shape, in float64 and float32-against-float64; for
    stages 2+3 also on random problems with a reflecting surface, where
-   the elimination carries a large part of the radiances, at 4096 + 5
-   lanes (not a multiple of the kernel's 16 lanes per block) with 59
-   layers and with one (L = 1), checks two float32 runs bit-identical,
-   and logs the traffic of its algorithm beside its bound and its ptxas
-   report;
+   the elimination carries a large part of the radiances, and for stage 1
+   on random scattering problems, where the Jacobi sweeps turn the
+   eigenvectors away from the coordinate axes (all seven outputs, G+-
+   included), each at 4096 + 5 lanes (not a multiple of a block's lanes)
+   with 59 layers and with one (L = 1); checks two float32 runs of each
+   (and of fused_eigen) bit-identical, times stage 1 on the bench inputs
+   and on random problems of their shape, and logs the traffic of stage
+   2+3's algorithm beside its bound and the kernels' ptxas report;
 4. drives the all-sky main path (2048 lines x 4096 frequencies x 60
    levels, 16 streams, float32) through gas_absorption_profile and
    simulate_allsky, with every launch counter set to 0 just before and
@@ -171,6 +174,41 @@ def stage1_flops(n, sweeps):
     return ops
 
 
+def off_axis(ins, sweeps):
+    """[n, L * B]: for each eigenvector of the plain eigen stage on the
+    stage 1 inputs `ins` (float64), the sine of its angle to the nearest
+    coordinate axis, sqrt(1 - max_i V_ij^2); 0 where the sweeps left the
+    mode on an axis."""
+    from arts_tpu_torch.disort import eigen_kernel as EK
+    from arts_tpu_torch.ops.eigh_jacobi import jacobi_sweeps
+
+    pp, pm, om, _, _, _, q = (x.double() for x in ins)
+    n = math.isqrt(pp.shape[1])
+    H1, H2 = EK.h12_plain(pp, pm, om, q)
+    Lc = torch.linalg.cholesky(-H1)
+    Hs = -Lc.mT @ H2 @ Lc
+    _, V = jacobi_sweeps((0.5 * (Hs + Hs.mT)).reshape(-1, n, n).permute(1, 2, 0), sweeps)
+    return torch.sqrt(torch.clamp(1.0 - V.square().amax(0), min=0.0))
+
+
+def hold_stage1(got, want, rtol, floor, what):
+    """Stage 1's seven outputs (Ek, G+, G-, ut, vt, ub, vb) mode for mode:
+    each within rtol of its own scale plus rtol of |want| (close), G+ and
+    G- also within `floor` of their shared scale; logs one line and
+    returns the largest difference."""
+    g_scale = max(float(want[i].double().abs().max()) for i in (1, 2))
+    worst, parts = 0.0, []
+    for i, name in enumerate(("Ek", "G+", "G-", "ut", "vt", "ub", "vb")):
+        own = float(want[i].double().abs().max())
+        atol = rtol + (floor * g_scale / own if i in (1, 2) else 0.0)
+        err, r = close(got[i], want[i], rtol, atol, f"{what} {name}", own)
+        worst = max(worst, err)
+        parts.append(f"{name} {r:.2e}")
+    log(f"{what}: max|diff| of each output's scale: {', '.join(parts)} (held at rtol {rtol}, "
+        f"atol {rtol} * scale, G+- also {floor} of their shared scale {g_scale:.3e})")
+    return worst
+
+
 def stage23_flops(n, L):
     """Operations per lane of disort_stage23, counted from its loops."""
     n2 = 2 * n
@@ -299,10 +337,11 @@ def phase_disort(scenes, dev):
     from arts_tpu_torch import gas_absorption_profile
     from arts_tpu_torch._cuda import move
     from arts_tpu_torch.disort import disort
+    from arts_tpu_torch.disort import eigen_kernel as EK
     from arts_tpu_torch.disort import fused_kernel as FK
     from arts_tpu_torch.disort.solver import solve_terms
     from arts_tpu_torch.fwd_allsky import allsky_input
-    from arts_tpu_torch.scene import build_stage23_case
+    from arts_tpu_torch.scene import build_stage1_case, build_stage23_case
 
     scene, f = scenes[torch.float64]
     inp = {torch.float64: allsky_input(scene, f, gas_absorption_profile(
@@ -384,6 +423,36 @@ def phase_disort(scenes, dev):
                 require(all(torch.equal(x, y) for x, y in zip(x4, FK.stage23(*ins))),
                         f"{what}: two runs differ")
                 log(f"{what}: two runs bit-identical")
+        # random scattering problems (scene.build_stage1_case), where the
+        # Jacobi sweeps turn the eigenvectors well away from the coordinate
+        # axes (in the bench's layers H1 and H2 are diagonal to ~1e-3, so
+        # the checks above hardly see the sweeps, and they leave out G+-):
+        # all seven outputs mode for mode, at the bench's lanes + 5 with its
+        # 59 layers and with one (L = 1); G+- also at `floor` of their shared
+        # scale, phase_fused_eigen's allowance for the cancellation in (Y
+        # -+ D)/2
+        floor = 1e-13 if dt == torch.float64 else 1e-6
+        for Lr in (Lb, 1):
+            ins = build_stage1_case(NQUAD, Bb + 5, Lr, seed=Lr, device=dev, dtype=dt)
+            got = FK.stage1(*ins, sweeps[dt])
+            want = FK.stage1_plain(*ins, sweeps[dt])
+            torch.cuda.synchronize()
+            what = f"disort_stage1 {str(dt)[6:]} random L={Lr}, B={Bb + 5}"
+            off = off_axis(ins, sweeps[dt])
+            log(f"{what}: the plain eigenvectors' distance from the nearest coordinate axis "
+                f"(sine of the angle): median {float(off.median()):.3f}, 10 % quantile "
+                f"{float(off.quantile(0.1)):.2e}, largest {float(off.max()):.3f}")
+            require(float(off.median()) >= 0.05, f"{what}: the eigenvectors lie near the axes "
+                    f"(median sine {float(off.median()):.3e} < 0.05)")
+            e1 = max(e1, hold_stage1(got, want, rtol, floor, what))
+            if dt == torch.float32 and Lr == Lb:
+                require(all(torch.equal(x, y) for x, y in zip(got, FK.stage1(*ins, 6))),
+                        f"{what}: two runs differ")
+                eig = ins[:4] + (ins[6], 6)
+                require(all(torch.equal(x, y) for x, y in zip(EK.eigen_lanes(*eig),
+                                                              EK.eigen_lanes(*eig))),
+                        f"fused_eigen float32 random L={Lr}, B={Bb + 5}: two runs differ")
+                log(f"{what}: two runs bit-identical, and two of fused_eigen")
         errs[dt] = (e1, e23)
 
     # the whole fused solve: float64 kernels against float64 plain, and the
@@ -406,6 +475,13 @@ def phase_disort(scenes, dev):
     L, nn, B = s1[0].shape
     n = int(round(nn**0.5))
     ms1 = cuda_ms(lambda: FK.stage1(*s1, 6), 10)
+    # the same shape of random problems: nothing in the kernel depends on
+    # the data, so the times agree
+    s1r = build_stage1_case(NQUAD, B, L, seed=L, device=dev, dtype=dt)
+    ms1r = cuda_ms(lambda: FK.stage1(*s1r, 6), 10)
+    del s1r
+    require(0.8 <= ms1r / ms1 <= 1.25, f"disort_stage1 float32: {ms1r:.3f} ms on random problems "
+            f"against {ms1:.3f} ms on the bench inputs of the same shape")
     plain1 = cuda_ms(lambda: FK.stage1_plain(*s1, 6), 2)
     outs1 = FK.stage1_plain(*s1, 6)
     b1 = bound(B * L * stage1_flops(n, 6), nbytes(*s1) + nbytes(*outs1))
@@ -419,7 +495,11 @@ def phase_disort(scenes, dev):
     traffic = (2 * nbytes(*s23[:3]) + nbytes(*s23[3:]) + 2 * L * B * (n + 1) * 2 * n * 4
                + 4 * L * n * B * 4)
     log(f"disort_stage1 float32 [{L} x {B}] n={n}: {ms1:.3f} ms (plain {plain1:.1f} ms), "
-        f"bound {b1[0]:.4f} ms ({b1[1]})")
+        f"bound {b1[0]:.4f} ms ({b1[1]}); {ms1r:.3f} ms on random problems of that shape")
+    log_ptxas("stage1_kernel<float, 8>", "stage1_kernel<float, 4>", "stage1_kernel<double, 8>",
+              "stage1_kernel<double, 4>", "fused_eigen_kernel<float, 8>",
+              "fused_eigen_kernel<float, 4>", "fused_eigen_kernel<double, 8>",
+              "fused_eigen_kernel<double, 4>")
     log(f"disort_stage23 float32 [{L} x {B}] n={n}: {ms23:.3f} ms (plain {plain23:.1f} ms), "
         f"bound {b23[0]:.4f} ms ({b23[1]}; {B * stage23_flops(n, L) / 1e9:.2f} GFLOP); "
         f"the algorithm's own traffic {traffic / 1e6:.1f} MB, "

@@ -283,3 +283,53 @@ def test_stage23_kernel_float32_runs_bit_identical(dev):
     ins = build_stage23_case(16, 300, 7, seed=5, device=dev, dtype=torch.float32)
     for a, b in zip(FK.stage23(*ins), FK.stage23(*ins)):
         assert torch.equal(a, b)
+
+
+def _hold_stage1(got, want, rtol, floor):
+    """Every output mode for mode within rtol of its own scale; G+ and G-
+    (outputs 1, 2) also within `floor` of their shared scale, for the
+    cancellation in (Y -+ D)/2 (chip_smoke.py:phase_fused_eigen)."""
+    g_scale = max(float(want[i].double().abs().max()) for i in (1, 2))
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.double(), w.double()
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        lim = rtol * float(w.abs().max()) + (floor * g_scale if i in (1, 2) else 0.0)
+        assert float((g - w).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("L", [1, 7])
+@pytest.mark.parametrize("B", [1, 7, 300])
+@pytest.mark.parametrize("nquad", [8, 16])
+@pytest.mark.parametrize("dtype, rtol, floor", [(torch.float64, 2e-5, 1e-13),
+                                                (torch.float32, 1e-4, 1e-6)])
+def test_stage1_kernel_matches_plain(dev, dtype, rtol, floor, nquad, B, L):
+    """The stage 1 kernel against its plain version on random scattering
+    problems (scene.build_stage1_case: far from diagonal, so the Jacobi
+    sweeps turn every eigenvector), B lanes (1 and 7 fill no team's block,
+    300 is not a multiple of one) and L layers: all seven outputs (Ek, G+,
+    G-, ut, vt, ub, vb) mode for mode at chip_smoke's tolerances (2e-5
+    float64, 1e-4 float32, of each output's scale)."""
+    from arts_tpu_torch.disort import fused_kernel as FK
+    from arts_tpu_torch.scene import build_stage1_case
+
+    ins = build_stage1_case(nquad, B, L, seed=10 * B + L, device=dev, dtype=dtype)
+    sweeps = 8 if dtype == torch.float64 else 6
+    got, want = FK.stage1(*ins, sweeps), FK.stage1_plain(*ins, sweeps)
+    assert tuple(got[1].shape) == (L, (nquad // 2) ** 2, B)
+    _hold_stage1(got, want, rtol, floor)
+
+
+def test_stage1_kernel_float32_runs_bit_identical(dev):
+    """Two float32 runs of the stage 1 and fused_eigen kernels on the same
+    random scattering problems (300 lanes, 7 layers, 16 streams) give the
+    same bits: no atomics, a fixed order of every sum."""
+    from arts_tpu_torch.disort import eigen_kernel as EK
+    from arts_tpu_torch.disort import fused_kernel as FK
+    from arts_tpu_torch.scene import build_stage1_case
+
+    ins = build_stage1_case(16, 300, 7, seed=5, device=dev, dtype=torch.float32)
+    for a, b in zip(FK.stage1(*ins, 6), FK.stage1(*ins, 6)):
+        assert torch.equal(a, b)
+    eig = ins[:4] + (ins[6], 6)
+    for a, b in zip(EK.eigen_lanes(*eig), EK.eigen_lanes(*eig)):
+        assert torch.equal(a, b)

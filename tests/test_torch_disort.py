@@ -125,6 +125,24 @@ def test_stage1_plain_eigenvalues_match_lapack():
                                rtol=1e-10)
 
 
+def test_build_stage1_case_is_a_scattering_case():
+    """scene.build_stage1_case gives stage 1's inputs in lane layout, and
+    its problems scatter: in every (layer, lane) the plain G+ reaches at
+    least 1e-3 of G-'s largest entry (in build_scene's gas-only layers G+
+    is zero up to rounding), so the kernel's G+ is held to something."""
+    from arts_tpu_torch.scene import build_stage1_case
+
+    B, L, nq = 7, 3, 8
+    n = nq // 2
+    ins = build_stage1_case(nq, B, L, seed=2, device="cpu", dtype=torch.float32)
+    shapes = [(L, n * n, B)] * 2 + [(L, B)] * 4 + [(5 * n + 2 * n * n,)]
+    assert [tuple(x.shape) for x in ins] == shapes
+    assert all(x.dtype == torch.float32 and x.is_contiguous() for x in ins)
+    _, gp, gm, *_ = FK.stage1_plain(*(x.double() for x in ins), 8)
+    assert bool(torch.isfinite(gp).all())
+    assert float((gp.abs().amax(1) / gm.abs().amax(1)).min()) >= 1e-3
+
+
 def test_beam_and_brdf_are_not_ported():
     inp = _port_input(_inputs(F=1, L=3))
     with pytest.raises(NotImplementedError):

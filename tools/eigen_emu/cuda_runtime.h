@@ -1,0 +1,53 @@
+// CPU stand-in for the CUDA built-ins the eigen kernels of
+// csrc/disort_fused.cu use (tools/eigen_emu.py): one block at a time, one
+// std::thread per CUDA thread, a block-wide barrier for __syncwarp,
+// __syncthreads and each shuffle (stronger than the warp's, which the
+// kernels' uniform control flow allows).
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstring>
+using std::exp;
+using std::sqrt;
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+inline thread_local dim3 threadIdx, blockIdx;
+inline std::barrier<>* emu_bar;
+inline unsigned char* emu_smem;
+inline unsigned char emu_xch[1024 * 8];
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_bar->arrive_and_wait(); }
+inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+template <typename T>
+T emu_xchg(T v, int src_tid) {
+  std::memcpy(emu_xch + threadIdx.x * 8, &v, sizeof(T));
+  emu_bar->arrive_and_wait();
+  T r;
+  std::memcpy(&r, emu_xch + src_tid * 8, sizeof(T));
+  emu_bar->arrive_and_wait();
+  return r;
+}
+template <typename T>
+T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const int t = threadIdx.x, lane = t % 32, seg = t - lane + (lane - lane % width);
+  return emu_xchg(v, seg + (src % width));
+}
+template <typename T>
+T __shfl_up_sync(unsigned, T v, unsigned d, int width = 32) {
+  const int t = threadIdx.x, lw = t % 32 % width;
+  return emu_xchg(v, lw < int(d) ? t : t - int(d));
+}
+template <typename T>
+T __shfl_down_sync(unsigned, T v, unsigned d, int width = 32) {
+  const int t = threadIdx.x, lw = t % 32 % width;
+  return emu_xchg(v, lw + int(d) >= width ? t : t + int(d));
+}
