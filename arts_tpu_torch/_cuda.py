@@ -165,7 +165,7 @@ _SIGNATURES = {
     "voigt_sum_pol": [_P] * 10 + [_I] * 5 + [_P],
     # f, rec, out, Z, F, NP, P, tf, stream
     "zeeman_mp": [_P] * 3 + [_I] * 5 + [_P],
-    # a, w, v, n, B, sweeps, stream
+    # a [B, n, n] row-major, w [B, n], v [B, n, n], n, B, sweeps, stream
     "eigh_jacobi": [_P] * 3 + [_I] * 3 + [_P],
     # pp, pm, om, dtau, qtab, k, ek, gp, gm, n, L, B, sweeps, stream
     "fused_eigen": [_P] * 9 + [_I] * 4 + [_P],

@@ -7,13 +7,17 @@ cyclic Jacobi (port of arts_tpu/ops/eigh_jacobi.py).
   * `eigh_jacobi_plain`: the plain version of the kernel, the sweeps and
     an ascending (stable) sort;
   * `eigh_jacobi_kernel`: csrc/eigh_jacobi.cu, the hand-written kernel for
-    n <= 16 (the counterpart of the TPU's eigh_jacobi_pallas);
+    n <= 16 (the counterpart of the TPU's eigh_jacobi_pallas), on the
+    caller's row-major [..., n, n];
   * `eigh_jacobi`: the entry point, a torch.autograd.Function with a
     forward-mode rule (jvp), a reverse-mode rule (backward) and a vmap
     rule, so that torch.func.jacfwd / jacrev / vmap pass through a kernel
     that PyTorch cannot trace.
 
 csrc/jacobi.cuh carries the same schedule and rotation for the kernels.
+The kernel pads n with zero rows and columns to an even number of
+players, at least 4: a rotation against a zero off-diagonal is the
+identity, so its rounds are those of the plain version.
 """
 
 import functools
@@ -115,9 +119,8 @@ def eigh_jacobi_plain(A, sweeps=None):
 
 def eigh_jacobi_kernel(A, sweeps=None):
     """csrc/eigh_jacobi.cu on the CUDA tensor A [..., n, n], n <= 16:
-    (w, V) as eigh_jacobi_plain returns them.  The batch goes over in lane
-    layout [n*n, B] (one transpose each way) so that the kernel's reads
-    and writes coalesce."""
+    (w, V) as eigh_jacobi_plain returns them.  The kernel reads A row-major
+    and writes the fresh tensors w [..., n] and V [..., n, n]."""
     if sweeps is None:
         sweeps = _default_sweeps(A.dtype)
     n = A.shape[-1]
@@ -127,13 +130,13 @@ def eigh_jacobi_kernel(A, sweeps=None):
         raise ValueError(f"eigh_jacobi kernel: takes [..., n, n] with n <= {KERNEL_MAX_N}, "
                          f"got {tuple(A.shape)}")
     batch = A.shape[:-2]
-    a = A.reshape(-1, n * n).t().contiguous()
-    B = a.shape[1]
-    w = torch.empty((n, B), dtype=A.dtype, device=A.device)
-    V = torch.empty((n * n, B), dtype=A.dtype, device=A.device)
+    a = A.contiguous()  # a copy only for a strided view (the vmap rule's movedim)
+    w = torch.empty(batch + (n,), dtype=A.dtype, device=A.device)
+    V = torch.empty(batch + (n, n), dtype=A.dtype, device=A.device)
+    B = w.numel() // n
     if B:
         _cuda.launch("eigh_jacobi", A.dtype, *map(_cuda.ptr, (a, w, V)), n, B, int(sweeps))
-    return _from_lanes(w, V.view(n, n, B), batch)
+    return w, V
 
 
 def _eigh_forward(A, sweeps, plain):

@@ -49,8 +49,10 @@
    float64 on the card and on the CPU: equal to 1e-10 of scale, |V| > 0;
 9. (after phase 4, on the benchmark scene) holds the Jacobi eigh kernel
    against its plain version on the differentiable route's Hsym batch
-   (241,664 problems of 8 x 8) in float64 and float32 (eigenvalues,
-   reconstruction, orthogonality), timed beside torch.linalg.eigh; holds
+   (241,664 problems of 8 x 8) in float64 and float32 and on random
+   float32 batches of that size at n = 13 and 16 (eigenvalues,
+   reconstruction, orthogonality), checks two float32 runs bit-identical,
+   and times it at the three shapes beside torch.linalg.eigh; holds
    the fused_eigen kernel against its plain version and against the
    differentiable route's eigen stage, then drives its entry point; and
    holds the differentiable all-sky route (simulate_allsky(fast_linalg=
@@ -234,8 +236,8 @@ def phase_build():
     name = None
     for line in info.get("ptxas", "").splitlines():
         m = re.search(r"(voigt_sum_kernel|combine_kernel|stage1_kernel|stage23_kernel|"
-                      r"zeeman_mp_kernel|fused_eigen_kernel|eigh_jacobi_kernel|"
-                      r"eigh_jacobi_local_kernel)I([fd])(?:Li(\d+)E)?", line)
+                      r"zeeman_mp_kernel|fused_eigen_kernel|eigh_team_kernel)I([fd])"
+                      r"(?:Li(\d+)E)?", line)
         if "Compiling entry function" in line and m:
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}" + (
                 f", {m.group(3)}>" if m.group(3) else ">")
@@ -610,8 +612,18 @@ def phase_main_path(scenes, dev, _cuda, reps=5):
 def jacobi_flops(n, sweeps):
     """Operations per matrix of the tournament Jacobi sweeps (csrc/jacobi.cuh):
     per rotation pair ~16 for the angle and 18 n for the row, column and V
-    updates, n/2 pairs (n even) per round, n - 1 rounds per sweep."""
-    return sweeps * (n - 1) * (n // 2) * (16 + 18 * n)
+    updates, every pair once a sweep: n/2 pairs in each of n - 1 rounds for
+    even n; for odd n, n + 1 players in n rounds, the dummy's pairs not
+    counted."""
+    return sweeps * (n * (n - 1) // 2) * (16 + 18 * n)
+
+
+def random_symmetric(B, n, dt, dev, seed):
+    """B random symmetric n x n matrices X + X^T, X standard normal from a
+    seeded generator on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((B, n, n), generator=g, device=dev, dtype=dt)
+    return X + X.mT
 
 
 def eigen_flops(n, sweeps):
@@ -640,10 +652,31 @@ def bench_hsym(scene, f, dev, dt):
 LIB_CHUNK = 16384
 
 
+def hold_eigh(A, w, V, w_p, tol, what):
+    """Eigenvalues within tol of their scale (max |w_p|) of the plain
+    version's, A V = V diag(w) within 4 tol of max |A| and V^T V = I within
+    4 tol; logs one line, returns the largest eigenvalue difference."""
+    n, dt = A.shape[-1], A.dtype
+    scale = float(w_p.abs().max())
+    err = float((w - w_p).abs().max())
+    recon = float((A @ V - V * w[..., None, :]).abs().max()) / float(A.abs().max())
+    orth = float((V.mT @ V - torch.eye(n, dtype=dt, device=A.device)).abs().max())
+    log(f"{what} [{A.shape[0]} x {n} x {n}]: eigenvalues max|diff| {err:.3e} ({err / scale:.2e} "
+        f"of scale; held at {tol}{', bit for bit' if err == 0.0 else ''}); |A V - V diag(w)| / "
+        f"|A| {recon:.2e}, |V^T V - I| {orth:.2e} (both held at {4 * tol})")
+    require(bool(torch.isfinite(w).all() and torch.isfinite(V).all()), f"{what}: non-finite values")
+    require(err <= tol * scale, f"{what} eigenvalues {err / scale:.3e} > {tol}")
+    require(recon <= 4 * tol and orth <= 4 * tol,
+            f"{what} reconstruction {recon:.3e} / orthogonality {orth:.3e}")
+    return err
+
+
 def phase_eigh(hs, dev):
     """Kernel 7 on the Hsym batch of the benchmark scene (hs, bench_hsym per
-    dtype) against its plain version, float64 and float32; times beside
-    torch.linalg.eigh."""
+    dtype) against its plain version, float64 and float32, and in float32
+    on random symmetric batches of the same size at n = 13 (an odd n, a
+    zero dummy player) and n = 16; two float32 runs bit-identical; times
+    beside the bound, the plain version and torch.linalg.eigh."""
     from arts_tpu_torch import _cuda
     from arts_tpu_torch.ops import eigh_jacobi as E
 
@@ -656,46 +689,47 @@ def phase_eigh(hs, dev):
         w, V = E.eigh_jacobi_kernel(A)
         w_p, V_p = E.eigh_jacobi_plain(A)
         torch.cuda.synchronize()
-        n = A.shape[-1]
-        scale = float(w_p.abs().max())
-        err = float((w - w_p).abs().max())
-        a_scale = float(A.abs().max())
-        recon = float((A @ V - V * w[..., None, :]).abs().max()) / a_scale
-        orth = float((V.mT @ V - torch.eye(n, dtype=dt, device=dev)).abs().max())
-        v_err = float((V - V_p).abs().max())
-        log(f"eigh_jacobi {str(dt)[6:]} [{A.shape[0]} x {n} x {n}]: eigenvalues max|diff| "
-            f"{err:.3e} ({err / scale:.2e} of scale; held at {tol}), eigenvectors vs plain "
-            f"{v_err:.3e}; |A V - V diag(w)| / |A| {recon:.2e}, |V^T V - I| {orth:.2e} "
-            f"(both held at {4 * tol})")
-        require(err <= tol * scale, f"eigh_jacobi {dt} eigenvalues {err / scale:.3e} > {tol}")
-        require(recon <= 4 * tol and orth <= 4 * tol,
-                f"eigh_jacobi {dt} reconstruction {recon:.3e} / orthogonality {orth:.3e}")
+        err = hold_eigh(A, w, V, w_p, tol, f"eigh_jacobi {str(dt)[6:]} bench Hsym")
+        log(f"  eigenvectors vs plain: max|diff| {float((V - V_p).abs().max()):.3e}")
         if dt == torch.float32:
             max_abs = err
-
     A = batches[torch.float32]
-    B, n = A.shape[0], A.shape[-1]
-    a = A.reshape(B, n * n).t().contiguous()
-    w = torch.empty((n, B), dtype=A.dtype, device=dev)
-    V = torch.empty((n * n, B), dtype=A.dtype, device=dev)
-    launch = lambda: _cuda.launch("eigh_jacobi", A.dtype, *map(_cuda.ptr, (a, w, V)), n, B, 6)
-    ms = cuda_ms(launch, 20)
-    wrapper_ms = cuda_ms(lambda: E.eigh_jacobi_kernel(A), 20)
-    plain_ms = cuda_ms(lambda: E.eigh_jacobi_plain(A), 2)
-    # torch.linalg.eigh: cuSOLVER's batched syev refuses batches of 32,768
-    # matrices or more (CUSOLVER_STATUS_INVALID_VALUE; 16,384 pass), so the
-    # library time is the sum over calls of LIB_CHUNK matrices each
-    library_ms = cuda_ms(lambda: [torch.linalg.eigh(c) for c in A.split(LIB_CHUNK)], 2)
-    b_ms, b_by = bound(B * jacobi_flops(n, 6), nbytes(A) + B * (n + n * n) * 4)
-    log(f"eigh_jacobi float32 [{B} x {n} x {n}]: kernel {ms:.3f} ms, wrapper with the lane "
-        f"transposes {wrapper_ms:.3f} ms (plain {plain_ms:.1f} ms, torch.linalg.eigh "
-        f"{library_ms:.3f} ms in {-(-B // LIB_CHUNK)} calls of <= {LIB_CHUNK}), "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    return dict(
-        name="eigh_jacobi", route="cuda", source="arts_tpu_torch/csrc/eigh_jacobi.cu",
-        replaces="arts_tpu/ops/eigh_jacobi.py:235", max_abs_err=max_abs, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-    )
+    B = A.shape[0]
+    rand = {n: random_symmetric(B, n, torch.float32, dev, seed=n) for n in (13, 16)}
+    for n, An in rand.items():
+        w, V = E.eigh_jacobi_kernel(An)
+        hold_eigh(An, w, V, E.eigh_jacobi_plain(An)[0], 2e-6, f"eigh_jacobi float32 random n={n}")
+    for what, An in (("bench Hsym n=8", A), ("random n=16", rand[16])):
+        w1, V1 = E.eigh_jacobi_kernel(An)
+        w2, V2 = E.eigh_jacobi_kernel(An)
+        require(torch.equal(w1, w2) and torch.equal(V1, V2),
+                f"eigh_jacobi float32 {what}: two runs differ")
+    log("eigh_jacobi float32: two runs bit-identical (bench Hsym n=8, random n=16)")
+    log_ptxas(*(f"eigh_team_kernel<{t}, {N}>" for t in ("float", "double")
+                for N in (4, 6, 8, 10, 12, 14, 16)))
+
+    out = {}
+    for what, An in (("bench Hsym", A), ("random n=13", rand[13]), ("random n=16", rand[16])):
+        n = An.shape[-1]
+        w = torch.empty((B, n), dtype=An.dtype, device=dev)
+        V = torch.empty((B, n, n), dtype=An.dtype, device=dev)
+        ptrs = tuple(map(_cuda.ptr, (An, w, V)))
+        ms = cuda_ms(lambda: _cuda.launch("eigh_jacobi", An.dtype, *ptrs, n, B, 6), 20)
+        wrapper_ms = cuda_ms(lambda: E.eigh_jacobi_kernel(An), 20)
+        plain_ms = cuda_ms(lambda: E.eigh_jacobi_plain(An), 2)
+        # torch.linalg.eigh: cuSOLVER's batched syev refuses batches of 32,768
+        # matrices or more (CUSOLVER_STATUS_INVALID_VALUE; 16,384 pass), so the
+        # library time is the sum over calls of LIB_CHUNK matrices each
+        library_ms = cuda_ms(lambda: [torch.linalg.eigh(c) for c in An.split(LIB_CHUNK)], 2)
+        b_ms, b_by = bound(B * jacobi_flops(n, 6), 2 * nbytes(An) + nbytes(w))
+        log(f"eigh_jacobi float32 {what} [{B} x {n} x {n}]: kernel {ms:.4f} ms, wrapper "
+            f"{wrapper_ms:.4f} ms (plain {plain_ms:.1f} ms, torch.linalg.eigh {library_ms:.3f} ms "
+            f"in {-(-B // LIB_CHUNK)} calls of <= {LIB_CHUNK}), bound {b_ms:.4f} ms ({b_by})")
+        out[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms)
+    return dict(name="eigh_jacobi", route="cuda", source="arts_tpu_torch/csrc/eigh_jacobi.cu",
+                replaces="arts_tpu/ops/eigh_jacobi.py:235", max_abs_err=max_abs,
+                **out["bench Hsym"])
 
 
 def phase_fused_eigen(hs, dev, _cuda):

@@ -155,24 +155,103 @@ def test_zeeman_mp_kernel_matches_plain(dev, dtype, atol):
     assert bool(((got - want).abs() <= atol * want.abs().max()).all())
 
 
-@pytest.mark.parametrize("n", [3, 4, 8, 12, 16])
+def _sym(rng, shape, n, dtype, dev):
+    X = torch.tensor(rng.normal(size=shape + (n, n)), dtype=dtype, device=dev)
+    return X + X.mT
+
+
+def _hold_eigh(A, w, V, w_ref, tol):
+    """Eigenvalues within tol of scale (max |A|) of w_ref; A V = V diag(w)
+    within 4 tol of scale and V^T V = I within 4 tol."""
+    n = A.shape[-1]
+    scale = float(A.abs().max())
+    assert float((w - w_ref).abs().max()) <= tol * scale
+    assert float((A @ V - V * w[..., None, :]).abs().max()) <= 4 * tol * scale
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    assert float((V.mT @ V - eye).abs().max()) <= 4 * tol
+
+
+@pytest.mark.parametrize("n", list(range(1, 17)))
 @pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 2e-6)])
 def test_eigh_kernel_matches_plain(dev, n, dtype, tol):
     """The Jacobi eigh kernel against its plain version on 3000 random
-    symmetric matrices (the unrolled instance for n <= 8, the run-time-n
-    instance above): eigenvalues within tol of scale, A V = V diag(w) and
-    V^T V = I within 4 tol (of scale)."""
+    symmetric matrices, every n of the kernel (one instance per even
+    number of players, odd n with a zero dummy): eigenvalues within tol of
+    scale, A V = V diag(w) and V^T V = I within 4 tol (of scale)."""
     from arts_tpu_torch.ops.eigh_jacobi import eigh_jacobi_kernel, eigh_jacobi_plain
 
     X = torch.tensor(np.random.default_rng(n).normal(size=(3000, n, n)), dtype=dtype, device=dev)
     A = X + X.mT
     w, V = eigh_jacobi_kernel(A)
     w_ref, _ = eigh_jacobi_plain(A)
-    scale = float(A.abs().max())
-    assert float((w - w_ref).abs().max()) <= tol * scale
-    assert float((A @ V - V * w[..., None, :]).abs().max()) <= 4 * tol * scale
-    eye = torch.eye(n, dtype=dtype, device=dev)
-    assert float((V.mT @ V - eye).abs().max()) <= 4 * tol
+    _hold_eigh(A, w, V, w_ref, tol)
+
+
+@pytest.mark.parametrize("B", [1, 63, 65, 64 * 37 + 1])
+@pytest.mark.parametrize("n", [8, 13, 16])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 2e-6)])
+def test_eigh_kernel_tail_blocks(dev, n, B, dtype, tol):
+    """Batches that end inside a block (64 matrices per block at n = 8, 32
+    or 16 at n = 13 and 16): launched on the first B of B + 1 matrices
+    into outputs of B + 1 filled with NaN, the kernel holds against its
+    plain version as in test_eigh_kernel_matches_plain and writes nothing
+    past B."""
+    from arts_tpu_torch import _cuda
+    from arts_tpu_torch.ops.eigh_jacobi import _default_sweeps, eigh_jacobi_plain
+
+    A = _sym(np.random.default_rng(B + n), (B + 1,), n, dtype, dev)
+    w = torch.full((B + 1, n), float("nan"), dtype=dtype, device=dev)
+    V = torch.full((B + 1, n, n), float("nan"), dtype=dtype, device=dev)
+    _cuda.launch("eigh_jacobi", dtype, *map(_cuda.ptr, (A, w, V)), n, B, _default_sweeps(dtype))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(w[B]).all() and torch.isnan(V[B]).all())
+    w_ref, _ = eigh_jacobi_plain(A[:B])
+    _hold_eigh(A[:B], w[:B], V[:B], w_ref, tol)
+
+
+@pytest.mark.parametrize("n", [3, 8, 16])
+def test_eigh_kernel_leading_dimensions(dev, n):
+    """A [3, 5, 7, n, n]: w [3, 5, 7, n] and V [3, 5, 7, n, n], bit for bit
+    the kernel on the flattened batch."""
+    from arts_tpu_torch.ops.eigh_jacobi import eigh_jacobi_kernel
+
+    A = _sym(np.random.default_rng(n), (3, 5, 7), n, torch.float32, dev)
+    w, V = eigh_jacobi_kernel(A)
+    wf, Vf = eigh_jacobi_kernel(A.reshape(-1, n, n))
+    assert tuple(w.shape) == (3, 5, 7, n) and tuple(V.shape) == (3, 5, 7, n, n)
+    assert torch.equal(w.reshape(-1, n), wf) and torch.equal(V.reshape(-1, n, n), Vf)
+
+
+@pytest.mark.parametrize("n", [8, 13, 16])
+def test_eigh_kernel_float32_runs_bit_identical(dev, n):
+    """Two float32 runs of the kernel on the same batch are bit-identical."""
+    from arts_tpu_torch.ops.eigh_jacobi import eigh_jacobi_kernel
+
+    A = _sym(np.random.default_rng(n), (5000,), n, torch.float32, dev)
+    w1, V1 = eigh_jacobi_kernel(A)
+    w2, V2 = eigh_jacobi_kernel(A)
+    assert torch.equal(w1, w2) and torch.equal(V1, V2)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 2e-6)])
+def test_eigh_kernel_eigenvectors_match_plain(dev, dtype, tol):
+    """At n = 8 the kernel runs the plain version's rounds and rotations, so
+    on matrices whose eigenvalue gaps exceed 1e-2 of scale (Q diag(l) Q^T,
+    Q random orthogonal) V agrees entry by entry with the plain version's
+    within 200 tol: the eigenvalue tolerance over the smallest gap,
+    doubled."""
+    from arts_tpu_torch.ops.eigh_jacobi import eigh_jacobi_kernel, eigh_jacobi_plain
+
+    rng = np.random.default_rng(8)
+    Q = np.linalg.qr(rng.normal(size=(3000, 8, 8)))[0]
+    lam = np.cumsum(rng.uniform(0.02, 0.3, size=(3000, 8)), axis=1)
+    lam = rng.permuted(lam - lam.mean(1, keepdims=True), axis=1)
+    A = torch.tensor((Q * lam[:, None, :]) @ Q.transpose(0, 2, 1), dtype=dtype, device=dev)
+    A = 0.5 * (A + A.mT)
+    w, V = eigh_jacobi_kernel(A)
+    w_ref, V_ref = eigh_jacobi_plain(A)
+    _hold_eigh(A, w, V, w_ref, tol)
+    assert float((V - V_ref).abs().max()) <= 200 * tol
 
 
 def test_eigh_vmap_rule_launches_the_kernel_once(dev):

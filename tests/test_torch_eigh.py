@@ -49,6 +49,21 @@ def test_plain_matches_jax_soa_and_numpy(n, dtype, tol):
                                rtol=0, atol=4 * tol)
 
 
+@pytest.mark.parametrize("n", [3, 5, 15])
+def test_one_zero_dummy_leaves_plain_bit_identical(n):
+    """The eigh kernel takes odd n with a zero row and column as the dummy
+    player: the plain sweeps on A so padded, the dummy dropped by position,
+    give w and V bit for bit those of the unpadded plain version (a
+    rotation against a zero off-diagonal is the identity)."""
+    A = torch.tensor(_sym_batch(np.random.default_rng(n), 3, n, np.float32))
+    w, V = E.eigh_jacobi_plain(A)
+    M, Vd = E.jacobi_sweeps(torch.nn.functional.pad(A, (0, 1, 0, 1)).permute(1, 2, 0), 6)
+    wd = torch.diagonal(M[:n, :n], dim1=0, dim2=1)  # [B, n]
+    order = torch.argsort(wd, dim=1, stable=True)
+    assert torch.equal(torch.take_along_dim(wd, order, 1), w)
+    assert torch.equal(torch.take_along_dim(Vd[:n, :n].permute(2, 0, 1), order[:, None], 2), V)
+
+
 def test_gradcheck_backward_and_forward_ad():
     """The Function's backward and jvp against finite differences of the
     sweeps (float64, distinct eigenvalues; the input is symmetrized)."""

@@ -1,23 +1,38 @@
-"""Run the eigen kernels of csrc/disort_fused.cu on the CPU and hold them
-against their plain versions, without a card or nvcc.
+"""Run the eigen kernels of csrc/disort_fused.cu and the batched eigh of
+csrc/eigh_jacobi.cu on the CPU and hold them against their plain versions,
+without a card or nvcc.
 
-    python3 tools/eigen_emu.py [source.cu]
+    python3 tools/eigen_emu.py [--disort SRC] [--eigh SRC] [--only disort|eigh]
 
-The stage 1 and fused_eigen kernels (stage1_kernel, fused_eigen_kernel and
-the device code they call) are cut from the source (default: the
-package's), compiled with g++ against CPU stand-ins for the CUDA built-ins
-they use (tools/eigen_emu/: threads, barriers, shuffles, cp.async; the PTX
-approximations become the IEEE operations) and run block by block on
-scene.build_stage1_case problems: n = 8 and 4, float64 and float32, 37
-lanes x 2 layers, 5 x 1 and 9 x 7.  Prints each output's largest
-difference from stage1_plain / eigen_lanes_plain as a share of its scale
-and exits non-zero beyond the chip checks' tolerances (float64 2e-5,
-float32 1e-4).  It checks the kernels' logic (indices, the team's
-schedule, shuffles, synchronisation points in order); what the card's
-compiler and hardware do, and every time, only a chip run shows.  Needs
-g++ with C++20; a minute or so.
+The kernels are cut from the sources (default: the package's), compiled
+with g++ against CPU stand-ins for the CUDA built-ins they use
+(tools/eigen_emu/: threads, barriers, shuffles, cp.async; the PTX
+approximations of csrc/jacobi.cuh become the IEEE operations) and run
+block by block.
+
+* disort: stage1_kernel and fused_eigen_kernel (and the device code they
+  call) on scene.build_stage1_case problems: n = 8 and 4, float64 and
+  float32, 37 lanes x 2 layers, 5 x 1 and 9 x 7, against stage1_plain /
+  eigen_lanes_plain, each output's largest difference as a share of its
+  scale (limits: the chip checks' tolerances, float64 2e-5, float32 1e-4).
+* eigh: eigh_team_kernel for every n = 1..16, float64 and float32, on
+  random symmetric batches of B = 70 (not a multiple of any instance's
+  matrices per block; the shared tiles start as NaN), against
+  eigh_jacobi_plain: eigenvalues within the chip checks' tolerances of
+  scale (float64 1e-12, float32 2e-6), V elementwise within 1e3 of them
+  (the same rounds and rotations), and A V = V diag(w), V^T V = I within
+  4 of them.  (The float32 instances
+  with the plain version's arithmetic, n >= 9, come within rounding, not
+  bit for bit: PyTorch's float32 sqrt on the CPU is not always correctly
+  rounded.)
+
+Exits non-zero beyond a limit.  It checks the kernels' logic (indices, the
+team's schedule, padding, shuffles, synchronisation points in order); what
+the card's compiler and hardware do, and every time, only a chip run
+shows.  Needs g++ with C++20; about a minute for each part.
 """
 
+import argparse
 import pathlib
 import subprocess
 import sys
@@ -31,6 +46,7 @@ sys.path.insert(0, str(ROOT))
 
 from arts_tpu_torch.disort import eigen_kernel as EK  # noqa: E402
 from arts_tpu_torch.disort import fused_kernel as FK  # noqa: E402
+from arts_tpu_torch.ops import eigh_jacobi as E  # noqa: E402
 from arts_tpu_torch.scene import build_stage1_case  # noqa: E402
 
 HERE = pathlib.Path(__file__).resolve().parent / "eigen_emu"
@@ -45,16 +61,25 @@ PTX = {
 CASES = ((37, 2), (5, 1), (9, 7))
 
 
-def build(src, d):
-    """The emulator binary for `src` in directory d."""
+def sources(src, d, end, main):
+    """kernels.cpp in d: src up to `end`, the shared memory on the host,
+    main appended; jacobi.cuh beside it with its PTX replaced."""
     text = pathlib.Path(src).read_text()
-    text = text[: text.index("// stages 2+3\n")]
+    text = text[: text.index(end)]
     text = text.replace("extern __shared__ __align__(16) unsigned char smem[];",
                         "unsigned char* smem = emu_smem;")
+    head = (CSRC / "jacobi.cuh").read_text()
     for old, new in PTX.items():
-        text = text.replace(old, new)
-    (d / "kernels.cpp").write_text(text + "}  // namespace\n" + (HERE / "main.cpp").read_text())
-    (d / "jacobi.cuh").write_text((CSRC / "jacobi.cuh").read_text())
+        if old not in head:
+            raise SystemExit(f"PTX not in jacobi.cuh: {old!r}")
+        head = head.replace(old, new)
+    (d / "jacobi.cuh").write_text(head)
+    (d / "kernels.cpp").write_text(text + "}  // namespace\n" + (HERE / main).read_text())
+
+
+def build(src, d, end, main):
+    """The emulator binary for `src` in directory d."""
+    sources(src, d, end, main)
     exe = d / "emu"
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-I", str(HERE),
                     "-I", str(d), str(d / "kernels.cpp"), "-o", str(exe)], check=True)
@@ -79,26 +104,73 @@ def run(exe, mode, ins, sweeps, d):
                  for nm, shape in names)
 
 
-def main():
-    src = sys.argv[1] if len(sys.argv) > 1 else CSRC / "disort_fused.cu"
+def disort(src, d):
+    """stage 1 and fused_eigen against their plain versions; the worst share
+    of a tolerance."""
+    exe = build(src, d, "// stages 2+3\n", "main.cpp")
     worst = 0.0
-    with tempfile.TemporaryDirectory() as tmp:
-        d = pathlib.Path(tmp)
-        exe = build(src, d)
-        for nquad in (16, 8):
-            for dt, sweeps, tol in ((torch.float64, 8, 2e-5), (torch.float32, 6, 1e-4)):
-                for B, L in CASES:
-                    ins = build_stage1_case(nquad, B, L, seed=B + L, device="cpu", dtype=dt)
-                    pairs = (("stage 1", run(exe, "stage1", ins, sweeps, d),
-                              FK.stage1_plain(*ins, sweeps)),
-                             ("fused_eigen", run(exe, "eigen", ins, sweeps, d),
-                              EK.eigen_lanes_plain(*ins[:4], ins[6], sweeps)))
-                    for what, got, want in pairs:
-                        errs = [float((g.double() - w.double()).abs().max() / w.double().abs().max())
-                                for g, w in zip(got, want)]
-                        worst = max(worst, max(errs) / tol)
-                        print(f"n={nquad // 2} {str(dt)[6:]} B={B} L={L} {what}: "
-                              + " ".join(f"{e:.1e}" for e in errs), flush=True)
+    for nquad in (16, 8):
+        for dt, sweeps, tol in ((torch.float64, 8, 2e-5), (torch.float32, 6, 1e-4)):
+            for B, L in CASES:
+                ins = build_stage1_case(nquad, B, L, seed=B + L, device="cpu", dtype=dt)
+                pairs = (("stage 1", run(exe, "stage1", ins, sweeps, d),
+                          FK.stage1_plain(*ins, sweeps)),
+                         ("fused_eigen", run(exe, "eigen", ins, sweeps, d),
+                          EK.eigen_lanes_plain(*ins[:4], ins[6], sweeps)))
+                for what, got, want in pairs:
+                    errs = [float((g.double() - w.double()).abs().max() / w.double().abs().max())
+                            for g, w in zip(got, want)]
+                    worst = max(worst, max(errs) / tol)
+                    print(f"n={nquad // 2} {str(dt)[6:]} B={B} L={L} {what}: "
+                          + " ".join(f"{e:.1e}" for e in errs), flush=True)
+    return worst
+
+
+def eigh(src, d, B=70):
+    """eigh_team_kernel against eigh_jacobi_plain for n = 1..16; the worst
+    share of a tolerance."""
+    exe = build(src, d, "template <typename T, int N>\nint launch(", "eigh_main.cpp")
+    worst = 0.0
+    for n in range(1, 17):
+        for dt, tol in ((torch.float64, 1e-12), (torch.float32, 2e-6)):
+            X = np.random.default_rng(n).normal(size=(B, n, n))
+            A = torch.tensor(X + X.transpose(0, 2, 1), dtype=dt)
+            A.numpy().tofile(d / "a.bin")
+            sweeps = E._default_sweeps(dt)
+            subprocess.run([str(exe), "f32" if dt == torch.float32 else "f64", str(n), str(B),
+                            str(sweeps), str(d)], check=True)
+            npdt = np.float32 if dt == torch.float32 else np.float64
+            w = torch.from_numpy(np.fromfile(d / "w.out", npdt).reshape(B, n))
+            V = torch.from_numpy(np.fromfile(d / "v.out", npdt).reshape(B, n, n))
+            w_p, V_p = E.eigh_jacobi_plain(A)
+            scale = float(A.abs().max())
+            A64, w64, V64 = A.double(), w.double(), V.double()
+            errs = (float((w64 - w_p).abs().max()) / scale / tol,
+                    float((V64 - V_p).abs().max()) / (1e3 * tol),
+                    float((A64 @ V64 - V64 * w64[:, None, :]).abs().max()) / scale / (4 * tol),
+                    float((V64.mT @ V64 - torch.eye(n, dtype=torch.float64)).abs().max())
+                    / (4 * tol))
+            errs = tuple(float("inf") if e != e else e for e in errs)
+            same = torch.equal(w, w_p.to(dt)) and torch.equal(V, V_p.to(dt))
+            worst = max(worst, *errs)
+            print(f"eigh n={n} {str(dt)[6:]} B={B}: share of the limit: eigenvalues "
+                  f"{errs[0]:.2e}, V {errs[1]:.2e}, reconstruction {errs[2]:.2e}, "
+                  f"orthogonality {errs[3]:.2e}{'; bit for bit the plain version' if same else ''}",
+                  flush=True)
+    return worst
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--disort", default=CSRC / "disort_fused.cu")
+    ap.add_argument("--eigh", default=CSRC / "eigh_jacobi.cu")
+    ap.add_argument("--only", choices=("disort", "eigh"))
+    args = ap.parse_args()
+    worst = 0.0
+    for part, fn, src in (("disort", disort, args.disort), ("eigh", eigh, args.eigh)):
+        if args.only in (None, part):
+            with tempfile.TemporaryDirectory() as tmp:
+                worst = max(worst, fn(src, pathlib.Path(tmp)))
     print(f"largest difference {worst:.3f} of the tolerance")
     if worst > 1.0:
         raise SystemExit("beyond tolerance")

@@ -1,5 +1,6 @@
 // CPU stand-in for the CUDA built-ins the eigen kernels of
-// csrc/disort_fused.cu use (tools/eigen_emu.py): one block at a time, one
+// csrc/disort_fused.cu and csrc/eigh_jacobi.cu use (tools/eigen_emu.py):
+// one block at a time, one
 // std::thread per CUDA thread, a block-wide barrier for __syncwarp,
 // __syncthreads and each shuffle (stronger than the warp's, which the
 // kernels' uniform control flow allows).
@@ -26,6 +27,13 @@ inline std::barrier<>* emu_bar;
 inline unsigned char* emu_smem;
 inline unsigned char emu_xch[1024 * 8];
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_bar->arrive_and_wait(); }
+// rounded one by one: the emulator compiles with -ffp-contract=off
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 template <typename T>
 T emu_xchg(T v, int src_tid) {
