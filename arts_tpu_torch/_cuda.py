@@ -163,8 +163,8 @@ _SIGNATURES = {
     # n, L, B, stream
     "disort_stage23": [_P] * 14 + [_I] * 3 + [_P],
     "voigt_sum_pol": [_P] * 10 + [_I] * 5 + [_P],
-    # f, rec, out, Z, F, NP, P, tf, stream
-    "zeeman_mp": [_P] * 3 + [_I] * 5 + [_P],
+    # f, rec, out, part, Z, F, NP, P, split, stream
+    "zeeman_mp": [_P] * 4 + [_I] * 5 + [_P],
     # a [B, n, n] row-major, w [B, n], v [B, n, n], n, B, sweeps, stream
     "eigh_jacobi": [_P] * 3 + [_I] * 3 + [_P],
     # pp, pm, om, dtau, qtab, k, ek, gp, gm, n, L, B, sweeps, stream

@@ -16,16 +16,17 @@ so the contraction runs over (parents x frequencies) instead of
   1. `zeeman_pole_moments` (tensor code): per-level, per-pole moments
      from the padded [CM, NP] component grids of lbl.zeeman.
   2. `zeeman_mp_eval`: the dense (level, parent, frequency) evaluation,
-     csrc/zeeman_mp.cu on the card (one thread per frequency, parents
-     staged in shared memory), in full float32 / float64.
+     csrc/zeeman_mp.cu on the card (2 frequencies per thread, the
+     parents whose window reaches a block's frequencies staged in shared
+     memory by cp.async, each warp summing those that reach its own),
+     in full float32 / float64.
   3. `near_correction` (tensor code): the few grid points inside each
      pole's near radius, selected and evaluated exactly per component,
      then added with a deterministic segment sum (sorted keys, ranks
      within a key, a dense sum in fixed order), so float32 runs on the
      card repeat bit for bit.
 
-Not ported: the approximate reciprocal with its Newton step (the card
-divides exactly), the bf16 tail of the TPU's MXU contraction, the
+Not ported: the bf16 tail of the TPU's MXU contraction, the
 padding of parents and frequencies to whole TPU blocks (the kernel masks
 its own ragged edge), and the near correction's static candidate grid
 with its one-hot MXU scatter.
@@ -41,7 +42,7 @@ from .wofz import _weideman_coeffs
 
 NCOMP = 7  # propagation-matrix components
 MP_TERMS = 5  # expansion terms P; csrc/zeeman_mp.cu is built for this P
-TF = 256  # threads (frequencies) per block
+SPLIT = 4  # blocks over the parents of one (tile, level) (zeeman_mp_kernel's split)
 
 
 def wofz_parts(zr, zi, n):
@@ -115,15 +116,22 @@ def zeeman_pole_moments(f0_k, igd_k, zi_k, sr_k, si_k, swc_k, pw_k, terms, kappa
     )
 
 
+def record_width(P):
+    """Values per pole record: 12 + 14 P padded to a multiple of 4, so that
+    a record is whole 16-byte pieces in float32 and float64 (84 at P = 5)."""
+    return (12 + 2 * NCOMP * P + 3) // 4 * 4
+
+
 def pole_records(c_re, g0, R, rnear2, cutoff, M_re, M_im, swcsum):
-    """The kernel's pole records [Z, NP, 12 + 14 P]:
-    [c_re, g0, R, rnear2, cut, swcsum[7], M_re[P][7], M_im[P][7]]."""
+    """The kernel's pole records [Z, NP, record_width(P)]:
+    [c_re, g0, R, rnear2, cut, swcsum[7], M_re[P][7], M_im[P][7], 0...]."""
     Z, NP, P, C = M_re.shape
     if C != NCOMP:
         raise ValueError(f"pole_records: expected {NCOMP} components, got {C}")
     cols = [x[..., None] for x in (c_re, g0, R, rnear2, cutoff.expand(Z, NP))]
+    pad = c_re.new_zeros((Z, NP, record_width(P) - 12 - 2 * NCOMP * P))
     return torch.cat(cols + [swcsum, M_re.reshape(Z, NP, P * C),
-                             M_im.reshape(Z, NP, P * C)], -1).contiguous()
+                             M_im.reshape(Z, NP, P * C), pad], -1).contiguous()
 
 
 def zeeman_mp_eval(f_grid, c_re, g0, R, rnear2, cutoff, M_re, M_im, swcsum):
@@ -136,32 +144,41 @@ def zeeman_mp_eval(f_grid, c_re, g0, R, rnear2, cutoff, M_re, M_im, swcsum):
 
 
 def _terms(rec):
-    P, r = divmod(rec.shape[-1] - 12, 2 * NCOMP)
-    if r or P < 1:
-        raise ValueError(f"pole records of width {rec.shape[-1]} are not 12 + 14 P")
+    """P of pole records of width 12 + 14 P or record_width(P)."""
+    w = rec.shape[-1]
+    P = (w - 12) // (2 * NCOMP)
+    if P < 1 or w not in (12 + 2 * NCOMP * P, record_width(P)):
+        raise ValueError(f"pole records of width {w} are neither 12 + 14 P nor "
+                         "record_width(P)")
     return P
 
 
-def zeeman_mp_kernel(f, rec):
-    """[Z, 7, F] from the pole records rec [Z, NP, 12 + 14 P].  On a CUDA
-    tensor this launches csrc/zeeman_mp.cu (one block per (tile, level),
-    one thread per frequency); on a CPU tensor it runs the plain version."""
+def zeeman_mp_kernel(f, rec, split=SPLIT):
+    """[Z, 7, F] from the pole records rec [Z, NP, record_width(P)].  On a
+    CUDA tensor this launches csrc/zeeman_mp.cu: blocks of 128 threads
+    over (tile of frequencies, level, split of the parents), split > 1
+    adding the splits' slabs in order in a second kernel; on a CPU tensor
+    it runs the plain version."""
     if f.device.type == "cpu":
         return zeeman_mp_plain(f, rec)
     dev, dt = f.device, f.dtype
-    Z, NP, _ = rec.shape
+    Z, NP, W = rec.shape
     P = _terms(rec)
     F = f.shape[0]
     if dev.type != "cuda" or dt not in (torch.float32, torch.float64) or P != MP_TERMS:
         raise ValueError(f"zeeman_mp_kernel: unsupported {dt} on {dev} with P={P}")
+    if W != record_width(P) or rec.data_ptr() % 16 or not 1 <= split <= 64:
+        raise ValueError(f"zeeman_mp_kernel: records must be padded to {record_width(P)} "
+                         f"values and 16-byte aligned (width {W}), split in 1..64 ({split})")
     _cuda.check("f", f, dev, dt, (F,))
     _cuda.check("rec", rec, dev, dt)
     out = torch.empty((Z, NCOMP, F), dtype=dt, device=dev)
     if Z and F:
         if NP == 0:
             return out.zero_()
+        part = torch.empty((split, Z, NCOMP, F), dtype=dt, device=dev) if split > 1 else out
         _cuda.launch("zeeman_mp", dt, _cuda.ptr(f), _cuda.ptr(rec), _cuda.ptr(out),
-                     Z, F, NP, P, TF)
+                     _cuda.ptr(part), Z, F, NP, P, split)
     return out
 
 
@@ -179,7 +196,7 @@ def zeeman_mp_plain(f, rec):
             cre, g0, R, rn2, cut = (r[:, i, None] for i in range(5))
             swc = r[:, 5:12]
             Mr = r[:, 12:12 + NCOMP * P].view(NP, P, NCOMP)
-            Mi = r[:, 12 + NCOMP * P:].view(NP, P, NCOMP)
+            Mi = r[:, 12 + NCOMP * P:12 + 2 * NCOMP * P].view(NP, P, NCOMP)
             dr = f[None, :] - cre
             d2 = dr * dr + g0 * g0
             inwin = dr.abs() <= cut
@@ -237,6 +254,25 @@ def _segment_sum(vals, key, n_keys):
     return dense.sum(1)
 
 
+def near_points(f_grid, c_re, g0, rnear, cutoff, noff):
+    """The grid points inside each pole's near radius and window among its
+    noff candidates around the centre: (mask, grid index, frequency), each
+    [Z, NP, noff]; c_re, g0, rnear [Z, NP], cutoff [NP].  The near mask
+    is the exact complement of the kernel's far mask (the same products,
+    separately rounded), so every in-window pair the kernel leaves out is
+    here once, if noff covers it."""
+    F = f_grid.shape[0]
+    i0 = torch.searchsorted(f_grid, c_re.contiguous())  # [Z, NP]
+    offs = torch.arange(noff, device=f_grid.device) - noff // 2
+    tgt = i0[..., None] + offs  # [Z, NP, O]
+    inrange = (tgt >= 0) & (tgt < F)
+    fo = f_grid[tgt.clamp(0, F - 1)]
+    dr = fo - c_re[..., None]
+    d2 = dr * dr + (g0 * g0)[..., None]
+    near = inrange & (d2 < (rnear * rnear)[..., None]) & (dr.abs() <= cutoff[None, :, None])
+    return near, tgt, fo
+
+
 def near_correction(f_grid, out, c_re, g0, rnear, cutoff, f0_k, igd_k, zi_k,
                     sr_k, si_k, pw_k, noff=6, wofz_n=16):
     """Exact per-component values at the grid points inside each pole's
@@ -244,24 +280,14 @@ def near_correction(f_grid, out, c_re, g0, rnear, cutoff, f0_k, igd_k, zi_k,
 
     out [Z, 7, F] from zeeman_mp_eval; c_re, g0, rnear [Z, NP]; cutoff
     [NP]; component grids f0_k, igd_k, zi_k, sr_k, si_k [Z, CM, NP];
-    pw_k [CM, NP, C].  The near mask is the exact complement of the
-    kernel's far mask (the same products, separately rounded).  noff
-    candidate points per pole must cover ceil(2 max rnear / spacing) + 2
-    (tune_zeeman_profile).  Only the candidates inside the near radius
-    are evaluated: JAX evaluates the whole static [Z, noff, CM, NP] grid
-    and masks it.  Returns the corrected field.
+    pw_k [CM, NP, C].  noff candidate points per pole must cover
+    ceil(2 max rnear / spacing) + 2 (tune_zeeman_profile).  Only the
+    candidates inside the near radius (near_points) are evaluated: JAX
+    evaluates the whole static [Z, noff, CM, NP] grid and masks it.
+    Returns the corrected field.
     """
-    Z, NP = c_re.shape
-    F = f_grid.shape[0]
-    dev = f_grid.device
-    i0 = torch.searchsorted(f_grid, c_re.contiguous())  # [Z, NP]
-    offs = torch.arange(noff, device=dev) - noff // 2
-    tgt = i0[..., None] + offs  # [Z, NP, O]
-    inrange = (tgt >= 0) & (tgt < F)
-    fo = f_grid[tgt.clamp(0, F - 1)]
-    dr = fo - c_re[..., None]
-    d2 = dr * dr + (g0 * g0)[..., None]
-    pmask = inrange & (d2 < (rnear * rnear)[..., None]) & (dr.abs() <= cutoff[None, :, None])
+    Z, F = c_re.shape[0], f_grid.shape[0]
+    pmask, tgt, fo = near_points(f_grid, c_re, g0, rnear, cutoff, noff)
 
     z, p, o = pmask.nonzero(as_tuple=True)  # the near (level, pole, offset)
     comp = lambda x: x[z, :, p]  # [N, CM]

@@ -9,7 +9,9 @@ build_cloud_retrieval is an OEM retrieval of cloud extinction, single
 scattering albedo and surface temperature in a cloudy microwave window.
 build_stage23_case gives the DISORT stage 2+3 kernel random problems on
 which its elimination shows, build_stage1_case the stage 1 kernel random
-scattering problems on which its Jacobi sweeps show.
+scattering problems on which its Jacobi sweeps show, build_zeeman_mp_case
+the zeeman_mp kernel random pole records on which every part of its sum
+shows.
 """
 
 import dataclasses
@@ -31,6 +33,7 @@ from .lbl.catalog import build_catalog
 from .lbl.partfun import rigid_rotor_table
 from .lbl.tmodel import Law
 from .lbl.zeeman import pad_zeeman_catalog, tune_zeeman_profile
+from .ops.zeeman_mp_kernel import MP_TERMS, NCOMP, pole_records
 from .retrieval import covariance
 from .retrieval.targets import RetrievalTarget, StateMapping
 from .scattering import HenyeyGreenstein
@@ -167,6 +170,33 @@ def build_stage1_case(nquad, B, L, seed, device=None, dtype=None):
                           t(src * rng.uniform(-1.0, 1.0, (B, 1, L))),
                           lam=lam, sign=sign, mu=mu, w=w)
     return tuple(x.to(dt).contiguous() for x in s1)
+
+
+def build_zeeman_mp_case(Z, NP, F, seed, device=None, dtype=None):
+    """(f [F], rec [Z, NP, record_width(MP_TERMS)]): random pole records for
+    the zeeman_mp kernel on F frequencies from -50 to 50 GHz.  Centres
+    uniform in -60..60 GHz in random order (some beyond the grid), cutoffs
+    2-25 GHz (windows that miss whole tiles of 512 frequencies), near radii
+    6 R with R 2-8 MHz (one or two grid points inside for the poles with
+    g0 below it), g0 0.05-1.5 near radii (so both halves of u weigh), and
+    moments M_re, M_im and swcsum random on all 7 components at scales
+    1 to 1e-3.  On the bench's pole records M_re = 0 and 3 components are
+    0 or small; here every part of the sum shows.  NP and F are the
+    caller's: a multiple of neither 32 parents nor 512 frequencies tests the
+    ragged edges.  Built in float64, then cast to dtype."""
+    dev, dt = resolve(device, dtype)
+    rng = np.random.default_rng(seed)
+    P = MP_TERMS
+    R = rng.uniform(2e6, 8e6, (Z, NP))
+    rnear = 6.0 * R
+    comp = 10.0 ** -np.linspace(0.0, 3.0, NCOMP)
+    moment = lambda: rng.normal(size=(Z, NP, P, NCOMP)) * comp
+    cols = (rng.uniform(-60e9, 60e9, (Z, NP)), rng.uniform(0.05, 1.5, (Z, NP)) * rnear, R,
+            rnear * rnear, rng.uniform(2e9, 25e9, NP), moment(), moment(),
+            1e-2 * rng.normal(size=(Z, NP, NCOMP)) * comp)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    f = t(np.linspace(-50e9, 50e9, F)).to(dt)
+    return f, pole_records(*map(t, cols)).to(dt)
 
 
 def window_scene(n_lev=51, device=None, dtype=None):

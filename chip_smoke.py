@@ -37,7 +37,13 @@
    shape it checks two float32 runs bit-identical and times the kernel as
    in 2;
 6. holds the zeeman_mp kernel against its plain version at the full
-   [60 levels, 2048 poles, 4096 frequencies] shape, float64 and float32;
+   [60 levels, 2048 poles, 4096 frequencies] shape and on random pole
+   records (scene.build_zeeman_mp_case: 2061 poles, 4173 frequencies, all
+   7 components and both halves of the moments nonzero), float64 and
+   float32, overall and each component against its own scale, checks two
+   float32 runs bit-identical and, level by level, that the near
+   correction's points are the kernel's near pairs, and times it at
+   splits 1, 2, 4 and 8;
 7. runs the Zeeman stage as bench.py defines it: zeeman_propmat_profile
    in float32 at the full shape, the median of 5 runs after a warm-up
    (counters set to 0 just before, read just after), zeeman points/s,
@@ -978,37 +984,84 @@ def phase_zeeman_pol(zin, dev, _cuda, levels=(0, 29, 59)):
     )
 
 
+def hold_components(got, want, rtol, atol, what):
+    """Each of the 7 components [Z, 7, F] within atol of its own scale plus
+    rtol of |want| (close); a component that is 0 throughout must come out
+    0.  Returns each component's largest difference over its scale."""
+    shares = []
+    for c in range(want.shape[1]):
+        scale = float(want[:, c].double().abs().max())
+        if scale == 0:
+            require(not bool(got[:, c].any()), f"{what} component {c}: not 0 where the plain "
+                    "version is 0 throughout")
+            shares.append(0.0)
+        else:
+            shares.append(close(got[:, c], want[:, c], rtol, atol, f"{what} component {c}",
+                                scale)[1])
+    return shares
+
+
+# the random pole records of phase 6: not a multiple of 32 parents nor of a
+# block's 512 frequencies
+MP_CASE = dict(Z=60, NP=2061, F=4173, seed=9)
+MP_SPLITS = (1, 2, 4, 8)
+
+
 def phase_zeeman_mp(zin, dev):
-    """The zeeman_mp kernel against its plain version at the full shape."""
+    """The zeeman_mp kernel against its plain version at the full shape, on
+    the bench's pole records and on random ones (build_zeeman_mp_case),
+    overall and per component; two float32 runs bit-identical; the near
+    correction's points against the kernel's near pairs, level by level;
+    its time at the default split and at MP_SPLITS."""
     from arts_tpu_torch.lbl.zeeman import zeeman_mp_args
     from arts_tpu_torch.ops import zeeman_mp_kernel as MP
+    from arts_tpu_torch.scene import build_zeeman_mp_case
 
-    recs = {}
     max_abs = 0.0
     for dt, rtol, atol in ((torch.float64, 0.0, 1e-12), (torch.float32, 2e-5, 2e-6)):
         d = zin[dt]
-        poles, _, _ = zeeman_mp_args(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"], d["vmr"],
-                                     d["mag"], d["los_za_deg"], mp_kappa=d["tune"]["mp_kappa"])
-        f, rec = poles[0], MP.pole_records(*poles[1:])
-        recs[dt] = (f, rec)
-        got = MP.zeeman_mp_kernel(f, rec)
-        want = MP.zeeman_mp_plain(f, rec)
-        torch.cuda.synchronize()
-        err, r = close(got, want, rtol, atol, f"zeeman_mp {dt}")
-        log(f"zeeman_mp {str(dt)[6:]} [{rec.shape[0]} levels, {rec.shape[1]} poles, "
-            f"{f.shape[0]} freqs, P={MP._terms(rec)}]: max|diff| {err:.3e} ({r:.2e} of scale; "
-            f"held at rtol {rtol}, atol {atol} * scale)")
-        if dt == torch.float32:
-            max_abs = err
-    f, rec = recs[torch.float32]
+        poles, near, _ = zeeman_mp_args(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"],
+                                        d["vmr"], d["mag"], d["los_za_deg"],
+                                        mp_kappa=d["tune"]["mp_kappa"])
+        bench = (poles[0], MP.pole_records(*poles[1:]))
+        for label, (f, rec) in (("bench", bench),
+                                ("random", build_zeeman_mp_case(**MP_CASE, device=dev, dtype=dt))):
+            got = MP.zeeman_mp_kernel(f, rec)
+            want = MP.zeeman_mp_plain(f, rec)
+            torch.cuda.synchronize()
+            what = f"zeeman_mp {str(dt)[6:]} {label}"
+            err, r = close(got, want, rtol, atol, what)
+            shares = hold_components(got, want, rtol, atol, what)
+            if dt == torch.float32:
+                require(torch.equal(got, MP.zeeman_mp_kernel(f, rec)), f"{what}: two runs differ")
+                max_abs = max(max_abs, err)
+            log(f"{what} [{rec.shape[0]} levels, {rec.shape[1]} poles, {f.shape[0]} freqs, "
+                f"P={MP._terms(rec)}]: max|diff| {err:.3e} ({r:.2e} of scale; per component "
+                f"{', '.join(f'{x:.2e}' for x in shares)} of its own; held at rtol {rtol}, "
+                f"atol {atol} * scale, overall and per component)"
+                + ("; two runs bit-identical" if dt == torch.float32 else ""))
+    f, rec = bench
+    Z = rec.shape[0]
+    # every in-window pair the kernel leaves out as near is one of the
+    # near correction's points: the two masks are complements
+    fixed = sum(MP.near_points(f, *args[:4], d["tune"]["noff"])[0].sum((1, 2)) for args in near)
+    kernel_near = [MP.pair_counts(f, rec[z:z + 1])["near"] for z in range(Z)]
+    require(fixed.tolist() == kernel_near, f"near points per level {fixed.tolist()} != the "
+            f"kernel's near pairs {kernel_near}")
+    log(f"zeeman_mp near pairs = near-correction points on each of the {Z} levels "
+        f"({sum(kernel_near)} in all)")
     ms = cuda_ms(lambda: MP.zeeman_mp_kernel(f, rec), 20)
+    by_split = {sp: round(cuda_ms(lambda: MP.zeeman_mp_kernel(f, rec, split=sp), 20), 4)
+                for sp in MP_SPLITS}
     plain_ms = cuda_ms(lambda: MP.zeeman_mp_plain(f, rec), 1)
     counts = MP.pair_counts(f, rec)
     pf = MP.pair_flops(MP._terms(rec))
     flops = sum(counts[k] * pf[k] for k in pf)
-    b_ms, b_by = bound(flops, nbytes(f, rec) + rec.shape[0] * 7 * f.shape[0] * 4)
-    log(f"zeeman_mp float32: {ms:.3f} ms (plain {plain_ms:.1f} ms); pairs {counts}; "
-        f"{flops / 1e9:.2f} GFLOP -> bound {b_ms:.4f} ms ({b_by})")
+    b_ms, b_by = bound(flops, nbytes(f, rec) + Z * 7 * f.shape[0] * 4)
+    log(f"zeeman_mp float32: {ms:.3f} ms at split {MP.SPLIT} (plain {plain_ms:.1f} ms); by "
+        f"split {by_split}; pairs {counts}; {flops / 1e9:.2f} GFLOP -> bound {b_ms:.4f} ms "
+        f"({b_by}, {b_ms / ms:.1%} of it)")
+    log_ptxas("zeeman_mp_kernel<float, 5>", "zeeman_mp_kernel<double, 5>", "combine_kernel<float>")
     return dict(
         name="zeeman_mp", route="cuda", source="arts_tpu_torch/csrc/zeeman_mp.cu",
         replaces="arts_tpu/ops/zeeman_mp_kernel.py:256", max_abs_err=max_abs, ms=ms,

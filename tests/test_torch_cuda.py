@@ -153,6 +153,54 @@ def test_zeeman_mp_kernel_matches_plain(dev, dtype, atol):
     got = MP.zeeman_mp_kernel(f, rec).double()
     want = MP.zeeman_mp_plain(f, rec).double()
     assert bool(((got - want).abs() <= atol * want.abs().max()).all())
+    _hold_components(got, want, atol)
+
+
+def _hold_components(got, want, atol):
+    """Each component [:, c] within atol of its own scale; a component that
+    is 0 throughout (two of the bench's) exactly 0."""
+    for c in range(want.shape[1]):
+        scale = want[:, c].abs().max()
+        assert bool(((got[:, c] - want[:, c]).abs() <= atol * scale).all()), c
+
+
+@pytest.mark.parametrize("split", [1, 3])
+@pytest.mark.parametrize("dtype, atol", [(torch.float64, 1e-12), (torch.float32, 2e-6)])
+def test_zeeman_mp_kernel_random_case(dev, dtype, atol, split):
+    """The zeeman_mp kernel on scene.build_zeeman_mp_case (3 levels, 301
+    parents in random order, 1100 frequencies: ragged chunks and tiles,
+    near points, windows that miss whole tiles, M_re and M_im nonzero on
+    all 7 components) at splits 1 and 3: overall and each component within
+    atol of its scale of the plain version; two runs bit-identical."""
+    from arts_tpu_torch.ops import zeeman_mp_kernel as MP
+    from arts_tpu_torch.scene import build_zeeman_mp_case
+
+    f, rec = build_zeeman_mp_case(3, 301, 1100, seed=4, device=dev, dtype=dtype)
+    got = MP.zeeman_mp_kernel(f, rec, split=split)
+    assert torch.equal(got, MP.zeeman_mp_kernel(f, rec, split=split))
+    got, want = got.double(), MP.zeeman_mp_plain(f, rec).double()
+    assert bool(((got - want).abs() <= atol * want.abs().max()).all())
+    _hold_components(got, want, atol)
+
+
+def test_zeeman_mp_kernel_raises(dev):
+    """No fallback: the wrapper raises on records it was not built for (P =
+    4, unpadded width), on float16, on unaligned records and on a split out
+    of range."""
+    from arts_tpu_torch.ops import zeeman_mp_kernel as MP
+    from arts_tpu_torch.scene import build_zeeman_mp_case
+
+    f, rec = build_zeeman_mp_case(2, 40, 300, seed=1, device=dev, dtype=torch.float32)
+    W = rec.shape[-1]
+    unaligned = torch.empty(rec.numel() + 1, device=dev)[1:].view(rec.shape).copy_(rec)
+    bad = [(f, torch.zeros(2, 40, MP.record_width(4), device=dev)), (f, rec[..., :82].contiguous()),
+           (f.half(), rec.half()), (f, unaligned)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            MP.zeeman_mp_kernel(*args)
+    with pytest.raises(ValueError):
+        MP.zeeman_mp_kernel(f, rec, split=0)
+    assert W == MP.record_width(MP.MP_TERMS) == 84
 
 
 def _sym(rng, shape, n, dtype, dev):

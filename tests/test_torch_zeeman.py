@@ -34,7 +34,7 @@ from arts_tpu_torch.lbl.catalog import LineCatalog
 from arts_tpu_torch.lbl.partfun import rigid_rotor_table
 from arts_tpu_torch.ops import voigt_kernel as V
 from arts_tpu_torch.ops import zeeman_mp_kernel as MP
-from arts_tpu_torch.scene import build_zeeman_inputs
+from arts_tpu_torch.scene import build_zeeman_inputs, build_zeeman_mp_case
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
@@ -283,6 +283,47 @@ def test_zeeman_mp_plain_matches_jax_interpret():
         *(jnp.asarray(m[k].numpy()) for k in ("M_re", "M_im", "swcsum")),
         terms=5, tf=64, pb=16, interpret=True))[:, :7]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_pole_records_padded_width():
+    """pole_records pads each record to record_width(P) (84 values at P = 5,
+    whole 16-byte pieces) with zeros; _terms reads P back from the padded
+    and the unpadded width and refuses others; zeeman_mp_plain gives the
+    same field on both; the kernel wrapper on CPU tensors runs it."""
+    rng = np.random.default_rng(2)
+    Zl, NP, P = 2, 9, MP.MP_TERMS
+    cols = [T(rng.uniform(-1e9, 1e9, (Zl, NP))), T(rng.uniform(1e6, 3e6, (Zl, NP))),
+            T(rng.uniform(1e6, 5e6, (Zl, NP))), T(rng.uniform(1e13, 1e14, (Zl, NP))),
+            T(rng.uniform(2e8, 1e9, NP)), T(rng.normal(size=(Zl, NP, P, 7))),
+            T(rng.normal(size=(Zl, NP, P, 7))), T(rng.normal(size=(Zl, NP, 7)))]
+    rec = MP.pole_records(*cols)
+    assert rec.shape == (Zl, NP, MP.record_width(P)) == (Zl, NP, 84)
+    assert not rec[..., 12 + 14 * P:].any()
+    unpadded = rec[..., :12 + 14 * P].contiguous()
+    assert MP._terms(rec) == MP._terms(unpadded) == P
+    for w in (83, 85, 12):
+        with pytest.raises(ValueError):
+            MP._terms(rec.new_zeros(1, 1, w))
+    f = T(np.linspace(-1.2e9, 1.2e9, 40))
+    got = MP.zeeman_mp_plain(f, rec)
+    assert torch.equal(got, MP.zeeman_mp_plain(f, unpadded))
+    assert got.abs().max() > 0 and torch.equal(MP.zeeman_mp_kernel(f, rec), got)
+
+
+def test_build_zeeman_mp_case_shows_every_part():
+    """The random pole records of the kernel's card checks: parents in
+    random order, M_re, M_im and swcsum nonzero on all 7 components, near
+    pairs, parents whose window misses a whole 512-frequency tile, and the
+    ragged sizes asked for."""
+    f, rec = build_zeeman_mp_case(2, 45, 600, seed=3, device="cpu", dtype=torch.float64)
+    assert rec.shape == (2, 45, 84) and f.shape == (600,)
+    assert not bool((rec[:, 1:, 0] >= rec[:, :-1, 0]).all())
+    for lo, hi in ((5, 12), (12, 47), (47, 82)):
+        assert bool((rec[..., lo:hi].abs().amax((0, 1)) > 0).all())
+    counts = MP.pair_counts(f, rec)
+    assert counts["near"] > 0 and counts["far"] > 0
+    inwin = (f[None, None, :512] - rec[..., 0, None]).abs() <= rec[..., 4, None]
+    assert bool((~inwin.any(-1)).any())
 
 
 def test_profile_route_matches_jax(cats, profile, reference):

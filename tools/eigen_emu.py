@@ -1,8 +1,10 @@
-"""Run the eigen kernels of csrc/disort_fused.cu and the batched eigh of
-csrc/eigh_jacobi.cu on the CPU and hold them against their plain versions,
-without a card or nvcc.
+"""Run the eigen kernels of csrc/disort_fused.cu, the batched eigh of
+csrc/eigh_jacobi.cu and the Zeeman parent-pole kernel of csrc/zeeman_mp.cu
+on the CPU and hold them against their plain versions, without a card or
+nvcc.
 
-    python3 tools/eigen_emu.py [--disort SRC] [--eigh SRC] [--only disort|eigh]
+    python3 tools/eigen_emu.py [--disort SRC] [--eigh SRC] [--zeeman SRC]
+                               [--only disort|eigh|zeeman]
 
 The kernels are cut from the sources (default: the package's), compiled
 with g++ against CPU stand-ins for the CUDA built-ins they use
@@ -25,6 +27,14 @@ block by block.
   with the plain version's arithmetic, n >= 9, come within rounding, not
   bit for bit: PyTorch's float32 sqrt on the CPU is not always correctly
   rounded.)
+* zeeman: zeeman_mp_kernel, float64 and float32, on
+  scene.build_zeeman_mp_case (3 levels, 301 parents, 1100 frequencies:
+  ragged chunks and tiles, parents in random order, near points, windows
+  that miss whole tiles) at splits 1 and 3, and on the pole records of a
+  small bench-shaped Zeeman catalog, against zeeman_mp_plain: each of the
+  7 components within the chip checks' tolerance of its own scale
+  (float64 1e-12, float32 2e-6; exactly 0 where the plain version's
+  component is 0 throughout).
 
 Exits non-zero beyond a limit.  It checks the kernels' logic (indices, the
 team's schedule, padding, shuffles, synchronisation points in order); what
@@ -47,7 +57,8 @@ sys.path.insert(0, str(ROOT))
 from arts_tpu_torch.disort import eigen_kernel as EK  # noqa: E402
 from arts_tpu_torch.disort import fused_kernel as FK  # noqa: E402
 from arts_tpu_torch.ops import eigh_jacobi as E  # noqa: E402
-from arts_tpu_torch.scene import build_stage1_case  # noqa: E402
+from arts_tpu_torch.ops import zeeman_mp_kernel as MP  # noqa: E402
+from arts_tpu_torch.scene import build_stage1_case, build_zeeman_inputs, build_zeeman_mp_case  # noqa: E402
 
 HERE = pathlib.Path(__file__).resolve().parent / "eigen_emu"
 CSRC = ROOT / "arts_tpu_torch" / "csrc"
@@ -63,11 +74,13 @@ CASES = ((37, 2), (5, 1), (9, 7))
 
 def sources(src, d, end, main):
     """kernels.cpp in d: src up to `end`, the shared memory on the host,
-    main appended; jacobi.cuh beside it with its PTX replaced."""
+    main appended; jacobi.cuh beside it; PTX replaced in both."""
     text = pathlib.Path(src).read_text()
     text = text[: text.index(end)]
     text = text.replace("extern __shared__ __align__(16) unsigned char smem[];",
                         "unsigned char* smem = emu_smem;")
+    for old, new in PTX.items():
+        text = text.replace(old, new)
     head = (CSRC / "jacobi.cuh").read_text()
     for old, new in PTX.items():
         if old not in head:
@@ -160,14 +173,58 @@ def eigh(src, d, B=70):
     return worst
 
 
+def share(got, want, tol):
+    """max |got - want| as a share of tol * max |want|; a component that is
+    0 throughout (two of the bench's) must come out exactly 0."""
+    err, scale = float((got.double() - want).abs().max()), float(want.abs().max())
+    return err / (tol * scale) if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def zeeman_cases(dt):
+    """[(label, f, rec)] for the zeeman part."""
+    from arts_tpu_torch.lbl.zeeman import zeeman_mp_args
+
+    f, rec = build_zeeman_mp_case(3, 301, 1100, seed=4, device="cpu", dtype=dt)
+    d = build_zeeman_inputs(n_lev=3, n_freq=1000, n_lines=128, device="cpu", dtype=dt)
+    poles, _, _ = zeeman_mp_args(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"], d["vmr"],
+                                 d["mag"], d["los_za_deg"], mp_kappa=d["tune"]["mp_kappa"])
+    return [("random", f, rec), ("bench-shaped", poles[0], MP.pole_records(*poles[1:]))]
+
+
+def zeeman(src, d):
+    """zeeman_mp_kernel against zeeman_mp_plain; the worst share of a
+    tolerance."""
+    exe = build(src, d, "// out [n] = the split slabs", "zeeman_main.cpp")
+    worst = 0.0
+    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 2e-6)):
+        npdt = np.float32 if dt == torch.float32 else np.float64
+        for label, f, rec in zeeman_cases(dt):
+            Z, NP, _ = rec.shape
+            F = f.shape[0]
+            f.numpy().tofile(d / "f.bin")
+            rec.numpy().tofile(d / "rec.bin")
+            want = MP.zeeman_mp_plain(f, rec).double()
+            for split in (1, 3):
+                subprocess.run([str(exe), "f32" if dt == torch.float32 else "f64", str(Z), str(F),
+                                str(NP), str(split), str(d)], check=True)
+                got = torch.from_numpy(np.fromfile(d / "out.bin", npdt).reshape(Z, MP.NCOMP, F))
+                errs = [share(got[:, c], want[:, c], tol) for c in range(MP.NCOMP)]
+                worst = max(worst, *errs)
+                print(f"zeeman_mp {str(dt)[6:]} {label} [{Z}, {NP}, {F}] split {split}: share of "
+                      f"the limit per component " + " ".join(f"{e:.2e}" for e in errs), flush=True)
+    return worst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--disort", default=CSRC / "disort_fused.cu")
     ap.add_argument("--eigh", default=CSRC / "eigh_jacobi.cu")
-    ap.add_argument("--only", choices=("disort", "eigh"))
+    ap.add_argument("--zeeman", default=CSRC / "zeeman_mp.cu")
+    ap.add_argument("--only", choices=("disort", "eigh", "zeeman"))
     args = ap.parse_args()
     worst = 0.0
-    for part, fn, src in (("disort", disort, args.disort), ("eigh", eigh, args.eigh)):
+    for part, fn, src in (("disort", disort, args.disort), ("eigh", eigh, args.eigh),
+                          ("zeeman", zeeman, args.zeeman)):
         if args.only in (None, part):
             with tempfile.TemporaryDirectory() as tmp:
                 worst = max(worst, fn(src, pathlib.Path(tmp)))

@@ -1,14 +1,15 @@
 // CPU stand-in for the CUDA built-ins the eigen kernels of
-// csrc/disort_fused.cu and csrc/eigh_jacobi.cu use (tools/eigen_emu.py):
-// one block at a time, one
+// csrc/disort_fused.cu, csrc/eigh_jacobi.cu and csrc/zeeman_mp.cu use
+// (tools/eigen_emu.py): one block at a time, one
 // std::thread per CUDA thread, a block-wide barrier for __syncwarp,
-// __syncthreads and each shuffle (stronger than the warp's, which the
-// kernels' uniform control flow allows).
+// __syncthreads and each shuffle or vote (stronger than the warp's, which
+// the kernels' uniform control flow allows).
 #pragma once
 #include <barrier>
 #include <cmath>
 #include <cstring>
 using std::exp;
+using std::fabs;
 using std::sqrt;
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -23,6 +24,7 @@ typedef void* cudaStream_t;
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
 inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim;
 inline std::barrier<>* emu_bar;
 inline unsigned char* emu_smem;
 inline unsigned char emu_xch[1024 * 8];
@@ -58,4 +60,23 @@ template <typename T>
 T __shfl_down_sync(unsigned, T v, unsigned d, int width = 32) {
   const int t = threadIdx.x, lw = t % 32 % width;
   return emu_xchg(v, lw + int(d) >= width ? t : t + int(d));
+}
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int o) {
+  return emu_xchg(v, int(threadIdx.x) ^ o);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline unsigned __ballot_sync(unsigned, int p) {
+  const int t = threadIdx.x, w0 = t - t % 32;
+  std::memcpy(emu_xch + t * 8, &p, sizeof p);
+  emu_bar->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) {
+    int q;
+    std::memcpy(&q, emu_xch + (w0 + i) * 8, sizeof q);
+    r |= unsigned(q != 0) << i;
+  }
+  emu_bar->arrive_and_wait();
+  return r;
 }
