@@ -163,7 +163,7 @@ _SIGNATURES = {
     # n, L, B, stream
     "disort_stage23": [_P] * 14 + [_I] * 3 + [_P],
     "voigt_sum_pol": [_P] * 10 + [_I] * 5 + [_P],
-    # f, rec, out, part, Z, F, NP, P, split, stream
+    # f, rec, out, part, Z, F, NP, P, slabs of part, stream
     "zeeman_mp": [_P] * 4 + [_I] * 5 + [_P],
     # a [B, n, n] row-major, w [B, n], v [B, n, n], n, B, sweeps, stream
     "eigh_jacobi": [_P] * 3 + [_I] * 3 + [_P],

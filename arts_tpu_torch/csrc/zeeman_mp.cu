@@ -21,8 +21,8 @@
 // FMAs and a few selects, by instruction issue.
 //
 // Design.  One block of kThreads threads per (tile of kThreads * kFPT
-// frequencies, level, split of the parents); a loop inside the block
-// takes the place of the TPU grid's sequential parent-block axis.
+// frequencies, level, one of kSplit parts of the parents); a loop inside
+// the block takes the place of the TPU grid's sequential parent-block axis.
 //  * Each thread owns kFPT adjacent frequencies, so one read of a
 //    parent's record from shared memory serves kFPT pairs, which are
 //    independent chains.
@@ -47,7 +47,7 @@
 //  * Within a parent the masks are selects folded into u and into the
 //    swcsum subtraction, so a warp across a window edge or a near point
 //    does not split.
-//  * u = R rcp(d2): the hardware reciprocal and one Newton step in
+//  * u = R recip(d2): the hardware reciprocal and one Newton step in
 //    float32 (the IEEE quotient in float64); the masks do not read it.
 //  * |f - c|^2 is formed from separately rounded products (no FMA
 //    contraction), exactly as the tensor code forms it, so the far mask
@@ -56,14 +56,13 @@
 //  * Each chunk's sum goes to its own partial before it is added to the
 //    running total, so no single register sums all parents' terms; the
 //    order is fixed and there are no atomics, so runs repeat bit for bit.
-//    With split > 1 each split writes its own slab and combine_kernel adds
-//    the slabs in split order.  The wrapper's split 4 gives 4 blocks per
-//    tile and level, which balances tiles of unequal work over the SMs.
+//    Each of the kSplit parts writes its own slab and combine_kernel adds
+//    the slabs in order: 4 blocks per tile and level balance tiles of
+//    unequal work over the SMs.
 // It stays issue-bound: ~120 instructions per (parent, frequency) pair in
 // the summing loop, three quarters of them FFMA (PERF.md, PR 9).
-// The switches below the constants (skip granularity, divide, Newton
-// step, warp filter, frequency layout, unrolling) exist for
-// tools/zeeman_mp_variants.py.
+// tools/zeeman_mp_variants.py times other values of the constants below and
+// other designs (by text substitutions of this file).
 
 #include <cuda_runtime.h>
 
@@ -83,15 +82,9 @@ constexpr int kThreads = 128;  // threads per block
 constexpr int kPB = 32;        // parents staged per chunk
 constexpr int kStages = 2;     // chunk buffers in the cp.async ring
 constexpr int kScan = 32;      // parents per thread in one round of the window test
-// parents per window test: 1 each parent, kScan groups of kScan, 0 none
-constexpr int kSkipGroup = 1;
-constexpr bool kDivide = false;  // the IEEE quotient R / d2 in float32 too
-constexpr bool kNewton = true;   // one Newton step on the float32 hardware reciprocal
-// each warp sums only the staged parents whose window reaches its own frequencies
-constexpr bool kWarpFilter = true;
-constexpr int kFPT = 2;          // frequencies per thread
-constexpr bool kStride = false;  // frequency k of a thread at k * kThreads + tid, else tid * kFPT + k
-constexpr int kUnroll = 2;       // parents per iteration of the summing loop
+constexpr int kFPT = 2;        // adjacent frequencies per thread
+constexpr int kUnroll = 2;     // parents per iteration of the summing loop
+constexpr int kSplit = 4;      // blocks over the parents of one tile and level
 
 // values per record: 12 + 14 P padded to 16-byte rows
 template <int P>
@@ -104,16 +97,6 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * (kStages * kPB * rec_width<P>() + 2 * (kThreads / 32)) +
          sizeof(unsigned short) * kScan * kThreads + sizeof(int) * (kThreads / 32) * 33;
 }
-
-// 1 / x: in float32 the hardware approximation (at most 1 ulp off) and,
-// with kNewton, one Newton step (jacobi::recip); in float64 the IEEE quotient
-__device__ __forceinline__ float rcp(float x) {
-  if (kNewton) return recip(x);
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ double rcp(double x) { return recip(x); }
 
 // one parent's terms at the thread's kFPT frequencies, added to part
 template <typename T, int P>
@@ -149,7 +132,7 @@ __device__ __forceinline__ void pole(const T* r, const T (&fv)[kFPT], T (&part)[
     // the sign-bit modifier in place of a select
     const bool inwin = fabs(dr) <= cut;
     const bool far = inwin && d2 >= rn2;  // near: !(d2 >= rn2), corrected outside
-    const T invR = kDivide ? R / d2 : R * rcp(d2);
+    const T invR = R * recip(d2);  // float32: hardware reciprocal, one Newton step
     const T m = far ? invR : T(0);
     ur[k] = dr * m;
     ui[k] = -(g0 * m);
@@ -189,8 +172,8 @@ __device__ __forceinline__ void pole(const T* r, const T (&fv)[kFPT], T (&part)[
   }
 }
 
-// grid (ceil(F / (kThreads kFPT)), Z, split).  f [F]; rec [Z, NP, W];
-// out [split, Z, 7, F] (the slabs of the splits, or out itself at split 1)
+// grid (ceil(F / (kThreads kFPT)), Z, kSplit).  f [F]; rec [Z, NP, W];
+// out [kSplit, Z, 7, F], the slabs of the parts
 template <typename T, int P>
 __global__ void __launch_bounds__(kThreads)
 zeeman_mp_kernel(const T* __restrict__ f, const T* __restrict__ rec,
@@ -216,7 +199,7 @@ zeeman_mp_kernel(const T* __restrict__ f, const T* __restrict__ rec,
   T fv[kFPT];
 #pragma unroll
   for (int k = 0; k < kFPT; ++k) {
-    fi[k] = base + (kStride ? k * kThreads + tid : tid * kFPT + k);
+    fi[k] = base + tid * kFPT + k;
     fv[k] = f[fi[k] < F ? fi[k] : F - 1];  // f[F - 1] is this tile's too
   }
 
@@ -246,7 +229,7 @@ zeeman_mp_kernel(const T* __restrict__ f, const T* __restrict__ rec,
     hi = ext[kWarps + i] > hi ? ext[kWarps + i] : hi;
   }
 
-  // this split's parents
+  // this part's parents
   const int p_lo = static_cast<int>(static_cast<long>(NP) * blockIdx.z / gridDim.z);
   const int p_hi = static_cast<int>(static_cast<long>(NP) * (blockIdx.z + 1) / gridDim.z);
   const T* rz = rec + static_cast<long>(z) * NP * W;
@@ -262,20 +245,15 @@ zeeman_mp_kernel(const T* __restrict__ f, const T* __restrict__ rec,
     // the window test: bit i of `mask` for parent q0 + i
     const int q0 = r0 + tid * kScan;
     const int nq = p_hi - q0 < 0 ? 0 : (p_hi - q0 < kScan ? p_hi - q0 : kScan);
-    const unsigned valid = nq == kScan ? 0xffffffffu : (1u << nq) - 1u;
-    unsigned mask = valid;
-    if (kSkipGroup != 0) {
-      mask = 0u;
+    unsigned mask = 0u;
 #pragma unroll 8
-      for (int i = 0; i < kScan; ++i) {
-        if (i < nq) {
-          const T* r = rz + static_cast<long>(q0 + i) * W;
-          const T c = r[0], cut = r[4];
-          const bool hit = lo - c <= cut && hi - c >= -cut;
-          mask |= static_cast<unsigned>(hit) << i;
-        }
+    for (int i = 0; i < kScan; ++i) {
+      if (i < nq) {
+        const T* r = rz + static_cast<long>(q0 + i) * W;
+        const T c = r[0], cut = r[4];
+        const bool hit = lo - c <= cut && hi - c >= -cut;
+        mask |= static_cast<unsigned>(hit) << i;
       }
-      if (kSkipGroup == kScan && mask != 0u) mask = valid;
     }
     // the kept parents in order: a block-wide exclusive scan of the counts
     const int mine = __popc(mask);
@@ -327,22 +305,17 @@ zeeman_mp_kernel(const T* __restrict__ f, const T* __restrict__ rec,
 #pragma unroll
         for (int kk = 0; kk < kFPT; ++kk) part[cc][kk] = T(0);
       }
-      if (kWarpFilter) {
-        // the same window test against the warp's range, 32 parents a ballot
-        for (int p0 = 0; p0 < rows; p0 += 32) {
-          const T* r = buf + (p0 + lane) * W;
-          const bool hit = p0 + lane < rows && wlo - r[0] <= r[4] && whi - r[0] >= -r[4];
-          const unsigned m = __ballot_sync(0xffffffffu, hit);
-          if (hit) sel[__popc(m & ((1u << lane) - 1u))] = p0 + lane;
-          __syncwarp();
-          const int n = __popc(m);
+      // the same window test against the warp's range, 32 parents a ballot
+      for (int p0 = 0; p0 < rows; p0 += 32) {
+        const T* r = buf + (p0 + lane) * W;
+        const bool hit = p0 + lane < rows && wlo - r[0] <= r[4] && whi - r[0] >= -r[4];
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (hit) sel[__popc(m & ((1u << lane) - 1u))] = p0 + lane;
+        __syncwarp();
+        const int n = __popc(m);
 #pragma unroll kUnroll
-          for (int i = 0; i < n; ++i) pole<T, P>(buf + sel[i] * W, fv, part);
-          __syncwarp();  // sel is read before the next ballot writes it
-        }
-      } else {
-#pragma unroll kUnroll
-        for (int p = 0; p < rows; ++p) pole<T, P>(buf + p * W, fv, part);
+        for (int i = 0; i < n; ++i) pole<T, P>(buf + sel[i] * W, fv, part);
+        __syncwarp();  // sel is read before the next ballot writes it
       }
 #pragma unroll
       for (int cc = 0; cc < kComp; ++cc) {
@@ -362,21 +335,21 @@ zeeman_mp_kernel(const T* __restrict__ f, const T* __restrict__ rec,
   }
 }
 
-// out [n] = the split slabs part [split, n] added in split order
+// out [n] = the slabs part [kSplit, n] added in order
 template <typename T>
-__global__ void combine_kernel(const T* __restrict__ part, T* __restrict__ out, long n,
-                               int split) {
+__global__ void combine_kernel(const T* __restrict__ part, T* __restrict__ out, long n) {
   for (long i = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; i < n;
        i += static_cast<long>(gridDim.x) * blockDim.x) {
     T a = part[i];
-    for (int s = 1; s < split; ++s) a += part[s * n + i];
+#pragma unroll
+    for (int s = 1; s < kSplit; ++s) a += part[s * n + i];
     out[i] = a;
   }
 }
 
 template <typename T, int P>
 int launch_p(const void* f, const void* rec, void* out, void* part, int Z, int F, int NP,
-             int split, void* stream) {
+             void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   constexpr size_t smem = smem_bytes<T, P>();
   if (smem > 48 * 1024) {
@@ -385,37 +358,35 @@ int launch_p(const void* f, const void* rec, void* out, void* part, int Z, int F
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int tile = kThreads * kFPT;
-  const dim3 grid((F + tile - 1) / tile, Z, split);
+  const dim3 grid((F + tile - 1) / tile, Z, kSplit);
   zeeman_mp_kernel<T, P><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(f), static_cast<const T*>(rec),
-      static_cast<T*>(split > 1 ? part : out), F, NP);
-  if (split > 1) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const long n = static_cast<long>(Z) * kComp * F;
-    const long blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
-    combine_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-        static_cast<const T*>(part), static_cast<T*>(out), n, split);
-  }
+      static_cast<const T*>(f), static_cast<const T*>(rec), static_cast<T*>(part), F, NP);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long n = static_cast<long>(Z) * kComp * F;
+  const long blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  combine_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      static_cast<const T*>(part), static_cast<T*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// built for the port's expansion length (ops/zeeman_mp_kernel.py MP_TERMS)
+// built for the port's expansion length (ops/zeeman_mp_kernel.py MP_TERMS);
+// part holds `slabs` [Z, 7, F] slabs, which must be kSplit (SPLIT there)
 template <typename T>
 int launch(const void* f, const void* rec, void* out, void* part, int Z, int F, int NP,
-           int P, int split, void* stream) {
-  if (P != 5 || split < 1 || split > 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_p<T, 5>(f, rec, out, part, Z, F, NP, split, stream);
+           int P, int slabs, void* stream) {
+  if (P != 5 || slabs != kSplit) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_p<T, 5>(f, rec, out, part, Z, F, NP, stream);
 }
 
 }  // namespace
 
 extern "C" int zeeman_mp_f32(const void* f, const void* rec, void* out, void* part, int Z,
-                             int F, int NP, int P, int split, void* stream) {
-  return launch<float>(f, rec, out, part, Z, F, NP, P, split, stream);
+                             int F, int NP, int P, int slabs, void* stream) {
+  return launch<float>(f, rec, out, part, Z, F, NP, P, slabs, stream);
 }
 
 extern "C" int zeeman_mp_f64(const void* f, const void* rec, void* out, void* part, int Z,
-                             int F, int NP, int P, int split, void* stream) {
-  return launch<double>(f, rec, out, part, Z, F, NP, P, split, stream);
+                             int F, int NP, int P, int slabs, void* stream) {
+  return launch<double>(f, rec, out, part, Z, F, NP, P, slabs, stream);
 }

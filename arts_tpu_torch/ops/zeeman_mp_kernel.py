@@ -42,7 +42,7 @@ from .wofz import _weideman_coeffs
 
 NCOMP = 7  # propagation-matrix components
 MP_TERMS = 5  # expansion terms P; csrc/zeeman_mp.cu is built for this P
-SPLIT = 4  # blocks over the parents of one (tile, level) (zeeman_mp_kernel's split)
+SPLIT = 4  # blocks over the parents of one (tile, level): kSplit of csrc/zeeman_mp.cu
 
 
 def wofz_parts(zr, zi, n):
@@ -153,12 +153,12 @@ def _terms(rec):
     return P
 
 
-def zeeman_mp_kernel(f, rec, split=SPLIT):
+def zeeman_mp_kernel(f, rec):
     """[Z, 7, F] from the pole records rec [Z, NP, record_width(P)].  On a
     CUDA tensor this launches csrc/zeeman_mp.cu: blocks of 128 threads
-    over (tile of frequencies, level, split of the parents), split > 1
-    adding the splits' slabs in order in a second kernel; on a CPU tensor
-    it runs the plain version."""
+    over (tile of frequencies, level, one of SPLIT parts of the parents),
+    then a second kernel that adds the parts' slabs in order; on a CPU
+    tensor it runs the plain version."""
     if f.device.type == "cpu":
         return zeeman_mp_plain(f, rec)
     dev, dt = f.device, f.dtype
@@ -167,18 +167,18 @@ def zeeman_mp_kernel(f, rec, split=SPLIT):
     F = f.shape[0]
     if dev.type != "cuda" or dt not in (torch.float32, torch.float64) or P != MP_TERMS:
         raise ValueError(f"zeeman_mp_kernel: unsupported {dt} on {dev} with P={P}")
-    if W != record_width(P) or rec.data_ptr() % 16 or not 1 <= split <= 64:
+    if W != record_width(P) or rec.data_ptr() % 16:
         raise ValueError(f"zeeman_mp_kernel: records must be padded to {record_width(P)} "
-                         f"values and 16-byte aligned (width {W}), split in 1..64 ({split})")
+                         f"values and 16-byte aligned (width {W})")
     _cuda.check("f", f, dev, dt, (F,))
     _cuda.check("rec", rec, dev, dt)
     out = torch.empty((Z, NCOMP, F), dtype=dt, device=dev)
     if Z and F:
         if NP == 0:
             return out.zero_()
-        part = torch.empty((split, Z, NCOMP, F), dtype=dt, device=dev) if split > 1 else out
+        part = torch.empty((SPLIT, Z, NCOMP, F), dtype=dt, device=dev)
         _cuda.launch("zeeman_mp", dt, _cuda.ptr(f), _cuda.ptr(rec), _cuda.ptr(out),
-                     _cuda.ptr(part), Z, F, NP, P, split)
+                     _cuda.ptr(part), Z, F, NP, P, SPLIT)
     return out
 
 

@@ -42,8 +42,9 @@
    7 components and both halves of the moments nonzero), float64 and
    float32, overall and each component against its own scale, checks two
    float32 runs bit-identical and, level by level, that the near
-   correction's points are the kernel's near pairs, and times it at
-   splits 1, 2, 4 and 8;
+   correction's points are the kernel's near pairs, and times it, with
+   the device times of its two kernels (the sum over the parents and the
+   fixed-order combine of the parts) from a profiled run;
 7. runs the Zeeman stage as bench.py defines it: zeeman_propmat_profile
    in float32 at the full shape, the median of 5 runs after a warm-up
    (counters set to 0 just before, read just after), zeeman points/s,
@@ -1002,9 +1003,8 @@ def hold_components(got, want, rtol, atol, what):
 
 
 # the random pole records of phase 6: not a multiple of 32 parents nor of a
-# block's 512 frequencies
+# block's 256 frequencies
 MP_CASE = dict(Z=60, NP=2061, F=4173, seed=9)
-MP_SPLITS = (1, 2, 4, 8)
 
 
 def phase_zeeman_mp(zin, dev):
@@ -1012,13 +1012,15 @@ def phase_zeeman_mp(zin, dev):
     the bench's pole records and on random ones (build_zeeman_mp_case),
     overall and per component; two float32 runs bit-identical; the near
     correction's points against the kernel's near pairs, level by level;
-    its time at the default split and at MP_SPLITS."""
+    its time, and its two kernels' device times from a profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
     from arts_tpu_torch.lbl.zeeman import zeeman_mp_args
     from arts_tpu_torch.ops import zeeman_mp_kernel as MP
     from arts_tpu_torch.scene import build_zeeman_mp_case
 
     max_abs = 0.0
-    for dt, rtol, atol in ((torch.float64, 0.0, 1e-12), (torch.float32, 2e-5, 2e-6)):
+    for dt, atol in ((torch.float64, 1e-12), (torch.float32, 2e-6)):
         d = zin[dt]
         poles, near, _ = zeeman_mp_args(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"],
                                         d["vmr"], d["mag"], d["los_za_deg"],
@@ -1030,15 +1032,15 @@ def phase_zeeman_mp(zin, dev):
             want = MP.zeeman_mp_plain(f, rec)
             torch.cuda.synchronize()
             what = f"zeeman_mp {str(dt)[6:]} {label}"
-            err, r = close(got, want, rtol, atol, what)
-            shares = hold_components(got, want, rtol, atol, what)
+            err, r = close(got, want, 0.0, atol, what)
+            shares = hold_components(got, want, 0.0, atol, what)
             if dt == torch.float32:
                 require(torch.equal(got, MP.zeeman_mp_kernel(f, rec)), f"{what}: two runs differ")
                 max_abs = max(max_abs, err)
             log(f"{what} [{rec.shape[0]} levels, {rec.shape[1]} poles, {f.shape[0]} freqs, "
                 f"P={MP._terms(rec)}]: max|diff| {err:.3e} ({r:.2e} of scale; per component "
-                f"{', '.join(f'{x:.2e}' for x in shares)} of its own; held at rtol {rtol}, "
-                f"atol {atol} * scale, overall and per component)"
+                f"{', '.join(f'{x:.2e}' for x in shares)} of its own; held at {atol} of "
+                f"scale, overall and per component)"
                 + ("; two runs bit-identical" if dt == torch.float32 else ""))
     f, rec = bench
     Z = rec.shape[0]
@@ -1051,16 +1053,25 @@ def phase_zeeman_mp(zin, dev):
     log(f"zeeman_mp near pairs = near-correction points on each of the {Z} levels "
         f"({sum(kernel_near)} in all)")
     ms = cuda_ms(lambda: MP.zeeman_mp_kernel(f, rec), 20)
-    by_split = {sp: round(cuda_ms(lambda: MP.zeeman_mp_kernel(f, rec, split=sp), 20), 4)
-                for sp in MP_SPLITS}
+    # the wrapper's two kernels: the sum over the parents, then the combine
+    # of the SPLIT parts' slabs; mean device time per launch the trace shows
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            MP.zeeman_mp_kernel(f, rec)
+        torch.cuda.synchronize()
+    dev_ms = {k: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+              for k in ("zeeman_mp_kernel<float, 5>", "combine_kernel<float>(")
+              if k in e.key and e.self_device_time_total > 0}
+    require(len(dev_ms) == 2, f"zeeman_mp profiled run: kernels not both seen ({dev_ms})")
     plain_ms = cuda_ms(lambda: MP.zeeman_mp_plain(f, rec), 1)
     counts = MP.pair_counts(f, rec)
     pf = MP.pair_flops(MP._terms(rec))
     flops = sum(counts[k] * pf[k] for k in pf)
     b_ms, b_by = bound(flops, nbytes(f, rec) + Z * 7 * f.shape[0] * 4)
-    log(f"zeeman_mp float32: {ms:.3f} ms at split {MP.SPLIT} (plain {plain_ms:.1f} ms); by "
-        f"split {by_split}; pairs {counts}; {flops / 1e9:.2f} GFLOP -> bound {b_ms:.4f} ms "
-        f"({b_by}, {b_ms / ms:.1%} of it)")
+    log(f"zeeman_mp float32: {ms:.3f} ms (plain {plain_ms:.1f} ms); profiled, per launch: "
+        f"zeeman_mp_kernel {dev_ms['zeeman_mp_kernel<float, 5>']:.4f} ms, combine_kernel of "
+        f"{MP.SPLIT} parts {dev_ms['combine_kernel<float>(']:.4f} ms; pairs {counts}; "
+        f"{flops / 1e9:.2f} GFLOP -> bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it)")
     log_ptxas("zeeman_mp_kernel<float, 5>", "zeeman_mp_kernel<double, 5>", "combine_kernel<float>")
     return dict(
         name="zeeman_mp", route="cuda", source="arts_tpu_torch/csrc/zeeman_mp.cu",

@@ -164,20 +164,21 @@ def _hold_components(got, want, atol):
         assert bool(((got[:, c] - want[:, c]).abs() <= atol * scale).all()), c
 
 
-@pytest.mark.parametrize("split", [1, 3])
+@pytest.mark.parametrize("n_parents", [301, 3])
 @pytest.mark.parametrize("dtype, atol", [(torch.float64, 1e-12), (torch.float32, 2e-6)])
-def test_zeeman_mp_kernel_random_case(dev, dtype, atol, split):
-    """The zeeman_mp kernel on scene.build_zeeman_mp_case (3 levels, 301
-    parents in random order, 1100 frequencies: ragged chunks and tiles,
-    near points, windows that miss whole tiles, M_re and M_im nonzero on
-    all 7 components) at splits 1 and 3: overall and each component within
-    atol of its scale of the plain version; two runs bit-identical."""
+def test_zeeman_mp_kernel_random_case(dev, dtype, atol, n_parents):
+    """The zeeman_mp kernel on scene.build_zeeman_mp_case (3 levels, 301 or
+    3 parents in random order, 1100 frequencies: ragged chunks, tiles and
+    parts of the parents, one part empty at 3, near points, windows that
+    miss whole tiles, M_re and M_im nonzero on all 7 components): overall
+    and each component within atol of its scale of the plain version; two
+    runs bit-identical."""
     from arts_tpu_torch.ops import zeeman_mp_kernel as MP
     from arts_tpu_torch.scene import build_zeeman_mp_case
 
-    f, rec = build_zeeman_mp_case(3, 301, 1100, seed=4, device=dev, dtype=dtype)
-    got = MP.zeeman_mp_kernel(f, rec, split=split)
-    assert torch.equal(got, MP.zeeman_mp_kernel(f, rec, split=split))
+    f, rec = build_zeeman_mp_case(3, n_parents, 1100, seed=4, device=dev, dtype=dtype)
+    got = MP.zeeman_mp_kernel(f, rec)
+    assert torch.equal(got, MP.zeeman_mp_kernel(f, rec))
     got, want = got.double(), MP.zeeman_mp_plain(f, rec).double()
     assert bool(((got - want).abs() <= atol * want.abs().max()).all())
     _hold_components(got, want, atol)
@@ -185,8 +186,7 @@ def test_zeeman_mp_kernel_random_case(dev, dtype, atol, split):
 
 def test_zeeman_mp_kernel_raises(dev):
     """No fallback: the wrapper raises on records it was not built for (P =
-    4, unpadded width), on float16, on unaligned records and on a split out
-    of range."""
+    4, unpadded width), on float16 and on unaligned records."""
     from arts_tpu_torch.ops import zeeman_mp_kernel as MP
     from arts_tpu_torch.scene import build_zeeman_mp_case
 
@@ -198,8 +198,6 @@ def test_zeeman_mp_kernel_raises(dev):
     for args in bad:
         with pytest.raises(ValueError):
             MP.zeeman_mp_kernel(*args)
-    with pytest.raises(ValueError):
-        MP.zeeman_mp_kernel(f, rec, split=0)
     assert W == MP.record_width(MP.MP_TERMS) == 84
 
 

@@ -28,13 +28,13 @@ block by block.
   bit for bit: PyTorch's float32 sqrt on the CPU is not always correctly
   rounded.)
 * zeeman: zeeman_mp_kernel, float64 and float32, on
-  scene.build_zeeman_mp_case (3 levels, 301 parents, 1100 frequencies:
-  ragged chunks and tiles, parents in random order, near points, windows
-  that miss whole tiles) at splits 1 and 3, and on the pole records of a
-  small bench-shaped Zeeman catalog, against zeeman_mp_plain: each of the
-  7 components within the chip checks' tolerance of its own scale
-  (float64 1e-12, float32 2e-6; exactly 0 where the plain version's
-  component is 0 throughout).
+  scene.build_zeeman_mp_case (3 levels, 301 or 3 parents, 1100 frequencies:
+  ragged chunks, tiles and parts of the parents, one part empty at 3,
+  parents in random order, near points, windows that miss whole tiles),
+  and on the pole records of a small bench-shaped Zeeman catalog, against
+  zeeman_mp_plain: each of the 7 components within the chip checks'
+  tolerance of its own scale (float64 1e-12, float32 2e-6; exactly 0
+  where the plain version's component is 0 throughout).
 
 Exits non-zero beyond a limit.  It checks the kernels' logic (indices, the
 team's schedule, padding, shuffles, synchronisation points in order); what
@@ -184,17 +184,18 @@ def zeeman_cases(dt):
     """[(label, f, rec)] for the zeeman part."""
     from arts_tpu_torch.lbl.zeeman import zeeman_mp_args
 
-    f, rec = build_zeeman_mp_case(3, 301, 1100, seed=4, device="cpu", dtype=dt)
+    cases = [("random", *build_zeeman_mp_case(3, n, 1100, seed=4, device="cpu", dtype=dt))
+             for n in (301, 3)]
     d = build_zeeman_inputs(n_lev=3, n_freq=1000, n_lines=128, device="cpu", dtype=dt)
     poles, _, _ = zeeman_mp_args(d["f_grid"], d["pzcat"], d["pf"], d["T"], d["P"], d["vmr"],
                                  d["mag"], d["los_za_deg"], mp_kappa=d["tune"]["mp_kappa"])
-    return [("random", f, rec), ("bench-shaped", poles[0], MP.pole_records(*poles[1:]))]
+    return cases + [("bench-shaped", poles[0], MP.pole_records(*poles[1:]))]
 
 
 def zeeman(src, d):
     """zeeman_mp_kernel against zeeman_mp_plain; the worst share of a
     tolerance."""
-    exe = build(src, d, "// out [n] = the split slabs", "zeeman_main.cpp")
+    exe = build(src, d, "// out [n] = the slabs", "zeeman_main.cpp")
     worst = 0.0
     for dt, tol in ((torch.float64, 1e-12), (torch.float32, 2e-6)):
         npdt = np.float32 if dt == torch.float32 else np.float64
@@ -204,14 +205,13 @@ def zeeman(src, d):
             f.numpy().tofile(d / "f.bin")
             rec.numpy().tofile(d / "rec.bin")
             want = MP.zeeman_mp_plain(f, rec).double()
-            for split in (1, 3):
-                subprocess.run([str(exe), "f32" if dt == torch.float32 else "f64", str(Z), str(F),
-                                str(NP), str(split), str(d)], check=True)
-                got = torch.from_numpy(np.fromfile(d / "out.bin", npdt).reshape(Z, MP.NCOMP, F))
-                errs = [share(got[:, c], want[:, c], tol) for c in range(MP.NCOMP)]
-                worst = max(worst, *errs)
-                print(f"zeeman_mp {str(dt)[6:]} {label} [{Z}, {NP}, {F}] split {split}: share of "
-                      f"the limit per component " + " ".join(f"{e:.2e}" for e in errs), flush=True)
+            subprocess.run([str(exe), "f32" if dt == torch.float32 else "f64", str(Z), str(F),
+                            str(NP), str(d)], check=True)
+            got = torch.from_numpy(np.fromfile(d / "out.bin", npdt).reshape(Z, MP.NCOMP, F))
+            errs = [share(got[:, c], want[:, c], tol) for c in range(MP.NCOMP)]
+            worst = max(worst, *errs)
+            print(f"zeeman_mp {str(dt)[6:]} {label} [{Z}, {NP}, {F}]: share of the limit per "
+                  f"component " + " ".join(f"{e:.2e}" for e in errs), flush=True)
     return worst
 
 

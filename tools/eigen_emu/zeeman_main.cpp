@@ -1,9 +1,9 @@
 // Runs zeeman_mp_kernel of the translation unit it is appended to
 // (tools/eigen_emu.py, cut from csrc/zeeman_mp.cu) on the CPU, one block
 // at a time, one std::thread per CUDA thread:
-//   emu_zeeman <f32|f64> Z F NP split dir
+//   emu_zeeman <f32|f64> Z F NP dir
 // reads dir/f.bin ([F]) and dir/rec.bin ([Z, NP, W]) and writes
-// dir/out.bin ([Z, 7, F]): the splits' slabs added in split order, as
+// dir/out.bin ([Z, 7, F]): the kSplit parts' slabs added in order, as
 // combine_kernel adds them.
 #include <algorithm>
 #include <cstdio>
@@ -29,7 +29,8 @@ void wr(const std::string& p, const std::vector<T>& v) {
   fclose(f);
 }
 template <typename T>
-void run(int Z, int F, int NP, int S, const std::string& d) {
+void run(int Z, int F, int NP, const std::string& d) {
+  constexpr int S = kSplit;
   constexpr int P = 5;
   auto f = rd<T>(d + "/f.bin");
   auto rec = rd<T>(d + "/rec.bin");
@@ -60,7 +61,7 @@ void run(int Z, int F, int NP, int S, const std::string& d) {
   wr(d + "/out.bin", out);
 }
 int main(int argc, char** argv) {
-  const int Z = atoi(argv[2]), F = atoi(argv[3]), NP = atoi(argv[4]), S = atoi(argv[5]);
-  if (std::string(argv[1]) == "f32") run<float>(Z, F, NP, S, argv[6]);
-  else run<double>(Z, F, NP, S, argv[6]);
+  const int Z = atoi(argv[2]), F = atoi(argv[3]), NP = atoi(argv[4]);
+  if (std::string(argv[1]) == "f32") run<float>(Z, F, NP, argv[5]);
+  else run<double>(Z, F, NP, argv[5]);
 }

@@ -4,27 +4,26 @@ beside a parent checkout's kernel.
     python3 tools/zeeman_mp_variants.py [--parent DIR]
 
 Each variant is arts_tpu_torch/csrc/zeeman_mp.cu with text substitutions
-of its constants: frequencies per thread (FPT, shipped 2), threads
-per block (shipped 128), parents per staged chunk (shipped 32), the
-window test's granularity (each parent; whole chunks of 32 parents, as
-a per-chunk test would; none), the IEEE quotient in place of the
-reciprocal, the hardware reciprocal without its Newton step, the warp
-filter (each warp sums only the staged parents whose window reaches its
-own frequencies) against selects alone, the frequency layout (a
-thread's FPT frequencies next to each other, or kThreads apart), and the
-parents per iteration of the summing loop (shipped 2); some in
-combination (VARIANTS).  Every variant also runs at
-split 1, 2, 4 and 8 (blocks over the parents of one tile and level, added
-by combine_kernel; shipped 4).  With --parent, DIR is a checkout of an earlier commit
-(git archive), whose csrc/zeeman_mp.cu is built too and called on the
-same inputs in its own layout (unpadded records, 256 threads).
+(VARIANTS): of its constants, frequencies per thread (FPT, shipped 2),
+threads per block (shipped 128), parents per staged chunk (shipped 32),
+parents per iteration of the summing loop (shipped 2) and parts of the
+parents (kSplit: blocks over the parents of one tile and level, added by
+combine_kernel; shipped 4); and of whole blocks of code, for designs the
+shipped kernel does not carry: the block's window test per chunk of 32
+parents (a hit keeps all 32) or none, the IEEE quotient or the hardware
+reciprocal without its Newton step in place of jacobi::recip, no warp
+filter (each warp sums every staged parent, the masks as selects), and a
+thread's FPT frequencies kThreads apart in place of next to each other;
+some in combination.  With --parent, DIR is a checkout of an earlier
+commit (git archive), whose csrc/zeeman_mp.cu is built too and called on
+the same inputs in its own layout (unpadded records, 256 threads).
 
 Every library is built with the package's nvcc flags (one nvcc each, all
 started together) under arts_tpu_torch/_build/, held against
 zeeman_mp_plain on each case (each of the 7 components within 2e-6 of its
 own scale in float32, 1e-12 in float64; exactly 0 where the plain
-version's is) and timed with CUDA events: 20 launches per (library,
-split), all in turn, 3 rounds, the median round.  Cases: the benchmark's
+version's is) and timed with CUDA events: 20 calls per library (both
+kernels), all in turn, 3 rounds, the median round.  Cases: the benchmark's
 Zeeman stage pole records (60 levels, 2048 parents, 4096 frequencies,
 float32; the shipped kernel and the parent's also in float64) and
 scene.build_zeeman_mp_case at 60 levels, 2061 parents, 4173 frequencies.
@@ -38,7 +37,7 @@ instructions per pair and the FFMA loop's rate give the time the shipped
 kernel would take at that rate.
 Prints the card, each library's ptxas lines for zeeman_mp_kernel, then
 per case its pairs and bound (chip_smoke.bound of pair_counts and
-pair_flops) and one line per library and split.  Exits non-zero if a
+pair_flops) and one line per library.  Exits non-zero if a
 library does not build or does not match, a substitution finds no
 target, or no card is present.
 """
@@ -61,31 +60,65 @@ import chip_smoke  # noqa: E402
 from arts_tpu_torch import _cuda  # noqa: E402
 from arts_tpu_torch.ops import zeeman_mp_kernel as MP  # noqa: E402
 
-FPT = "constexpr int kFPT = 2;"
-THREADS = "constexpr int kThreads = 128;"
-CHUNK = "constexpr int kPB = 32;"
-SKIP = "constexpr int kSkipGroup = 1;"
-DIVIDE = "constexpr bool kDivide = false;"
-NEWTON = "constexpr bool kNewton = true;"
-FILTER = "constexpr bool kWarpFilter = true;"
-STRIDE = "constexpr bool kStride = false;"
-UNROLL = "constexpr int kUnroll = 2;"
+def const(name, value):
+    """(shipped line, variant line) of the integer constant `name`."""
+    line = f"constexpr int {name} = {{}};"
+    return lambda n: (line.format(value), line.format(n))
 
 
-def sub(target, old, new):
-    """One substitution: `old` -> `new` inside the line `target`."""
-    return (target, target.replace(old, new))
+FPT_ = const("kFPT", 2)
+THREADS_ = const("kThreads", 128)
+CHUNK_ = const("kPB", 32)
+UNROLL_ = const("kUnroll", 2)
+SPLIT_ = const("kSplit", 4)
+WINDOW_TEST = """    unsigned mask = 0u;
+#pragma unroll 8
+    for (int i = 0; i < kScan; ++i) {
+      if (i < nq) {
+        const T* r = rz + static_cast<long>(q0 + i) * W;
+        const T c = r[0], cut = r[4];
+        const bool hit = lo - c <= cut && hi - c >= -cut;
+        mask |= static_cast<unsigned>(hit) << i;
+      }
+    }
+"""
+VALID = "(nq == kScan ? 0xffffffffu : (1u << nq) - 1u)"  # bits of the nq parents
+PER_CHUNK = (WINDOW_TEST, WINDOW_TEST + f"    if (mask != 0u) mask = {VALID};\n")
+NO_WINDOW_TEST = (WINDOW_TEST, f"    unsigned mask = {VALID};\n")
+RECIP = "const T invR = R * recip(d2);"
+DIVIDE = (RECIP, "const T invR = R / d2;")
+POLE = "// one parent's terms at the thread's kFPT frequencies, added to part"
+NO_NEWTON = [(RECIP, "const T invR = R * rcp_approx(d2);"), (POLE, """\
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ double rcp_approx(double x) { return 1.0 / x; }
 
-
-FPT_ = lambda n: sub(FPT, "2", str(n))
-THREADS_ = lambda n: sub(THREADS, "128", str(n))
-CHUNK_ = lambda n: sub(CHUNK, "32", str(n))
-NO_NEWTON = sub(NEWTON, "true", "false")
-UNROLL_ = lambda n: sub(UNROLL, "2", str(n))
-NO_FILTER = sub(FILTER, "true", "false")
+""" + POLE)]
+NO_FILTER = ("""      // the same window test against the warp's range, 32 parents a ballot
+      for (int p0 = 0; p0 < rows; p0 += 32) {
+        const T* r = buf + (p0 + lane) * W;
+        const bool hit = p0 + lane < rows && wlo - r[0] <= r[4] && whi - r[0] >= -r[4];
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (hit) sel[__popc(m & ((1u << lane) - 1u))] = p0 + lane;
+        __syncwarp();
+        const int n = __popc(m);
+#pragma unroll kUnroll
+        for (int i = 0; i < n; ++i) pole<T, P>(buf + sel[i] * W, fv, part);
+        __syncwarp();  // sel is read before the next ballot writes it
+      }
+""", """#pragma unroll kUnroll
+      for (int p = 0; p < rows; ++p) pole<T, P>(buf + p * W, fv, part);
+""")
+STRIDED = ("fi[k] = base + tid * kFPT + k;", "fi[k] = base + k * kThreads + tid;")
 SHIPPED = "shipped"
 VARIANTS = {
     SHIPPED: [],
+    "split 1": [SPLIT_(1)],
+    "split 2": [SPLIT_(2)],
+    "split 8": [SPLIT_(8)],
     "FPT 1": [FPT_(1)],
     "FPT 4": [FPT_(4)],
     "FPT 8": [FPT_(8)],
@@ -93,16 +126,16 @@ VARIANTS = {
     "256 threads": [THREADS_(256)],
     "chunks of 16": [CHUNK_(16)],
     "chunks of 64": [CHUNK_(64)],
-    "window test per chunk of 32": [sub(SKIP, "= 1", "= kScan")],
-    "no window test": [sub(SKIP, "= 1", "= 0")],
-    "IEEE divide": [sub(DIVIDE, "false", "true")],
-    "no Newton step": [NO_NEWTON],
+    "window test per chunk of 32": [PER_CHUNK],
+    "no window test": [NO_WINDOW_TEST],
+    "IEEE divide": [DIVIDE],
+    "no Newton step": NO_NEWTON,
     "no warp filter (selects only)": [NO_FILTER],
-    "strided frequencies, no warp filter": [sub(STRIDE, "false", "true"), NO_FILTER],
+    "strided frequencies, no warp filter": [STRIDED, NO_FILTER],
     "1 parent per loop iteration": [UNROLL_(1)],
     "4 parents per loop iteration": [UNROLL_(4)],
     "FPT 4, 1 parent per loop iteration": [FPT_(4), UNROLL_(1)],
-    "chunks of 64, no Newton step": [CHUNK_(64), NO_NEWTON],
+    "chunks of 64, no Newton step": [CHUNK_(64), *NO_NEWTON],
 }
 # independent FFMA chains and nothing else: the float32 rate this card
 # reaches, beside which the kernel's instruction rate is read
@@ -127,20 +160,20 @@ extern "C" int ffma_loop_launch(float* out, int blocks, int iters, void* stream)
 }
 """
 PARENT = "parent"
-SPLITS = (1, 2, 4, 8)
 REPS, ROUNDS = 20, 3
 NEW_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 PARENT_SIG = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def start_builds(root, parent):
-    """{name: (library path, nvcc process)}, one nvcc per library."""
+    """{name: (library path, nvcc process, kSplit)}, one nvcc per library
+    (kSplit None for the parent's)."""
     nvcc = _cuda._nvcc()
     (root / "calibration.cu").write_text(CALIBRATION)
     procs = {"calibration": (root / "calibration.so", subprocess.Popen(
         [nvcc, *_cuda.NVCC_FLAGS, "-shared", str(root / "calibration.cu"), "-o",
          str(root / "calibration.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True))}
+        text=True), None)}
     libs = dict(VARIANTS)
     if parent:
         libs[PARENT] = None
@@ -158,15 +191,17 @@ def start_builds(root, parent):
         (d / "zeeman_mp.cu").write_text(text)
         lib = d / "lib.so"
         cmd = [nvcc, *_cuda.NVCC_FLAGS, "-shared", str(d / "zeeman_mp.cu"), "-o", str(lib)]
+        split = None if subs is None else int(re.search(r"constexpr int kSplit = (\d+);",
+                                                        text).group(1))
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True))
+                                             stderr=subprocess.STDOUT, text=True), split)
     return procs
 
 
 def load(procs):
-    """{name: (f32 function, f64 function)}; prints the ptxas lines."""
+    """{name: (f32 function, f64 function, kSplit)}; prints the ptxas lines."""
     out = {}
-    for name, (lib, p) in procs.items():
+    for name, (lib, p, split) in procs.items():
         log, _ = p.communicate()
         if p.returncode:
             raise SystemExit(f"nvcc failed on {name!r}:\n{log}")
@@ -191,7 +226,7 @@ def load(procs):
             fn.argtypes = PARENT_SIG if name == PARENT else NEW_SIG
             fn.restype = ctypes.c_int
             fns.append(fn)
-        out[name] = tuple(fns)
+        out[name] = (*fns, split)
     return out
 
 
@@ -316,30 +351,29 @@ def main():
                   f"({kept / (Z * NP * F):.1%} of all): {kept * per_pair * 2 / rate / 1e9:.4f} ms "
                   f"at {per_pair:.1f} instructions each and the FFMA loop's rate", flush=True)
             timed, errs, buffers = {}, {}, []
-            for name, fns in libs.items():
+            for name, (*fns, split) in libs.items():
                 if f64 and name not in (SHIPPED, PARENT):
                     continue
                 fn = fns[1 if f64 else 0]
-                for split in ((1,) if name == PARENT else SPLITS):
-                    out = torch.empty((Z, 7, F), dtype=dt, device=dev)
+                out = torch.empty((Z, 7, F), dtype=dt, device=dev)
+                if name == PARENT:
+                    ptrs = tuple(map(_cuda.ptr, (f, unpadded, out)))
+                    call = lambda fn=fn, ptrs=ptrs: fn(*ptrs, Z, F, NP, MP.MP_TERMS, 256, stream())
+                else:
                     part = torch.empty((split, Z, 7, F), dtype=dt, device=dev)
-                    buffers += [out, part]  # alive while the timed calls write them
-                    if name == PARENT:
-                        ptrs = tuple(map(_cuda.ptr, (f, unpadded, out)))
-                        call = lambda fn=fn, ptrs=ptrs: fn(*ptrs, Z, F, NP, MP.MP_TERMS, 256, stream())
-                    else:
-                        ptrs = tuple(map(_cuda.ptr, (f, rec, out, part)))
-                        call = lambda fn=fn, ptrs=ptrs, s=split: fn(*ptrs, Z, F, NP, MP.MP_TERMS,
-                                                                      s, stream())
-                    rc = call()
-                    torch.cuda.synchronize()
-                    if rc:
-                        raise SystemExit(f"{name!r} split {split}: CUDA error {rc} at launch")
-                    key = name if name == PARENT else f"{name}, split {split}"
-                    errs[key] = held(out, want, tol)
-                    if not errs[key] <= 1.0:
-                        bad.append(f"{key} on {label}: {errs[key]:.3g} of the tolerance")
-                    timed[key] = call
+                    buffers.append(part)  # alive while the timed calls write it
+                    ptrs = tuple(map(_cuda.ptr, (f, rec, out, part)))
+                    call = lambda fn=fn, ptrs=ptrs, s=split: fn(*ptrs, Z, F, NP, MP.MP_TERMS, s,
+                                                                  stream())
+                buffers.append(out)
+                rc = call()
+                torch.cuda.synchronize()
+                if rc:
+                    raise SystemExit(f"{name!r}: CUDA error {rc} at launch")
+                errs[name] = held(out, want, tol)
+                if not errs[name] <= 1.0:
+                    bad.append(f"{name} on {label}: {errs[name]:.3g} of the tolerance")
+                timed[name] = call
             times = {key: [] for key in timed}
             for _ in range(ROUNDS):
                 for key, call in timed.items():
