@@ -1,6 +1,6 @@
 """arts_tpu_torch: the PyTorch/CUDA port of arts_tpu for NVIDIA Hopper.
 
-Three paths so far, with hand-written CUDA kernels for sm_90a, each beside
+Four paths so far, with hand-written CUDA kernels for sm_90a, each beside
 its plain PyTorch version:
   * all-sky: line-by-line gas absorption through the Voigt kernel, then
     the fused DISORT solve (gas_absorption_profile, simulate_allsky);
@@ -12,13 +12,36 @@ its plain PyTorch version:
     (simulate_allsky(fast_linalg=False), through the Jacobi eigh kernel),
     Jacobians by torch.func, and optimal estimation (retrieval.oem) on
     it, e.g. scene.build_cloud_retrieval; disort.eigen_kernel.fused_eigen
-    gives the DISORT eigen stage on its own.
+    gives the DISORT eigen stage on its own;
+  * clear-sky measurement: the scalar clear-sky radiance along paths
+    (simulate_clearsky, three rte_options, wind Doppler shifts), the level
+    cache (gas_absorption_levels, backend="pallas" through the Voigt
+    kernel; simulate_clearsky_from_levels), and the sensor pipeline
+    (sensor.measurement_vector with its observers and Jacobians), e.g.
+    scene.build_clearsky_measurement and scene.build_clearsky_retrieval.
 Entry points run on the card unless the caller passes device="cpu";
 without a card they raise.  Importing the package touches no device and
 changes no global setting.
 """
 
-from .fwd import ZeemanScene, simulate_clearsky_polarized  # noqa: F401
+from .fwd import (  # noqa: F401
+    ClearskyScene,
+    ZeemanScene,
+    gas_absorption_levels,
+    simulate_clearsky,
+    simulate_clearsky_bt,
+    simulate_clearsky_from_levels,
+    simulate_clearsky_polarized,
+)
 from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky  # noqa: F401
+
+from .sensor import (  # noqa: F401
+    SensorArray,
+    clearsky_observer,
+    clearsky_observer_cached,
+    gaussian_channels,
+    measurement_jacobian,
+    measurement_vector,
+)
 
 __version__ = "0.1.0"

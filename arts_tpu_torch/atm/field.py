@@ -1,6 +1,6 @@
 """1D atmosphere on an ascending altitude grid (port of arts_tpu/atm/field.py).
 
-t, vmr and the magnetic field interpolate linearly in altitude, p
+t, vmr, the magnetic field and the wind interpolate linearly in altitude, p
 log-linearly, clamped at the grid ends.  Any leading shape of the query
 altitudes is kept.
 """
@@ -18,6 +18,7 @@ class AtmPointData:
     p: torch.Tensor  # [...] pressure [Pa]
     vmr: torch.Tensor  # [..., S] volume mixing ratios
     mag: torch.Tensor  # [..., 3] magnetic field (u=E, v=N, w=Up) [T]
+    wind: torch.Tensor  # [..., 3] wind (u=E, v=N, w=Up) [m/s]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +28,7 @@ class Atmosphere1D:
     p: torch.Tensor  # [N]
     vmr: torch.Tensor  # [S, N]
     mag: torch.Tensor | None = None  # [3, N] magnetic field [T]; None = 0
+    wind: torch.Tensor | None = None  # [3, N] wind [m/s]; None = 0
 
     def at(self, alt) -> AtmPointData:
         z = self.z
@@ -38,13 +40,14 @@ class Atmosphere1D:
             return f[..., i0] * (1.0 - w) + f[..., i1] * w
 
         t = lin(self.t)
-        mag = (t.new_zeros(t.shape + (3,)) if self.mag is None
-               else torch.movedim(lin(self.mag), 0, -1))
+        vec = lambda f: (t.new_zeros(t.shape + (3,)) if f is None
+                         else torch.movedim(lin(f), 0, -1))
         return AtmPointData(
             t=t,
             p=torch.exp(lin(torch.log(self.p))),
             vmr=torch.movedim(lin(self.vmr), 0, -1),
-            mag=mag,
+            mag=vec(self.mag),
+            wind=vec(self.wind),
         )
 
 

@@ -11,8 +11,17 @@ numpy arrays:
      "surface_temperature": scalar,
      "surface_albedo": scalar (optional, default 0)}
 
-zeeman_catalog_from_numpy and padded_zeeman_catalog_from_numpy take a
-Zeeman catalog and its bucketed form the same way.
+clearsky_scene_from_numpy takes a clear-sky scene the same way:
+
+    {"atm": {"z", "t", "p", "vmr", "wind" (optional)},
+     "cat": {...}, "pf": {"t_grid", "q_grid"},
+     "surface_temperature": scalar,
+     "surface_emissivity": scalar (optional, default 1)}
+
+sensor_from_numpy a sensor's weights: {"row", "geo", "freq", "w",
+"n_elements"}.  zeeman_catalog_from_numpy and
+padded_zeeman_catalog_from_numpy take a Zeeman catalog and its bucketed
+form the same way.
 """
 
 import numpy as np
@@ -20,11 +29,13 @@ import torch
 
 from ._cuda import resolve
 from .atm import Atmosphere1D
+from .fwd import ClearskyScene
 from .fwd_allsky import AllskyScene
 from .lbl.catalog import catalog_from_arrays
 from .lbl.partfun import PartFunTable
 from .lbl.zeeman import PaddedZeemanCatalog, ZeemanCatalog
 from .scattering import HenyeyGreenstein
+from .sensor import SensorArray
 
 
 def scene_from_numpy(d, device=None, dtype=None) -> AllskyScene:
@@ -39,6 +50,29 @@ def scene_from_numpy(d, device=None, dtype=None) -> AllskyScene:
         surface_temperature=t(d["surface_temperature"]),
         surface_albedo=t(d.get("surface_albedo", 0.0)),
     )
+
+
+def clearsky_scene_from_numpy(d, device=None, dtype=None) -> ClearskyScene:
+    dev, dt = resolve(device, dtype)
+    t = lambda a: torch.tensor(np.asarray(a, dtype=np.float64), dtype=dt, device=dev)
+    a = d["atm"]
+    atm = Atmosphere1D(**{k: t(a[k]) for k in ("z", "t", "p", "vmr")},
+                       wind=None if a.get("wind") is None else t(a["wind"]))
+    return ClearskyScene(
+        atm=atm, cat=catalog_from_arrays(d["cat"], dev, dt),
+        pf=PartFunTable(t_grid=t(d["pf"]["t_grid"]), q_grid=t(d["pf"]["q_grid"])),
+        surface_temperature=t(d["surface_temperature"]),
+        surface_emissivity=t(d.get("surface_emissivity", 1.0)),
+    )
+
+
+def sensor_from_numpy(d, device=None, dtype=None) -> SensorArray:
+    """SensorArray from {"row", "geo", "freq", "w", "n_elements"}; rows
+    sorted."""
+    dev, dt = resolve(device, dtype)
+    ints, flts = _tensors(dev, dt)
+    return SensorArray(row=ints(d["row"]), geo=ints(d["geo"]), freq=ints(d["freq"]),
+                       w=flts(d["w"]), n_elements=int(d["n_elements"]))
 
 
 def _tensors(dev, dt):

@@ -1,6 +1,19 @@
-"""Forward operators shared by the port's paths (port of parts of
-arts_tpu/fwd.py): gas absorption assembly (line-catalog branch only) and
-the polarized clear-sky radiance through Zeeman-split lines."""
+"""Clear-sky forward operators (port of arts_tpu/fwd.py): gas absorption
+assembly, the scalar clear-sky radiance along a path, the level-cached
+absorption and the radiance interpolated from it, and the polarized
+clear-sky radiance through Zeeman-split lines.
+
+    path -> atmosphere at the path points -> LBL absorption -> Planck source
+         -> layer transmittances -> emission recursion (+ background)
+
+Every path argument may carry leading batch axes (one path per row,
+padded with zero-length segments, which are exact no-ops); the result
+keeps them.  Everything is differentiable by autograd and torch.func.
+
+Not ported yet (each raises NotImplementedError): the predefined
+continua and ECS line-mixing bands (ROADMAP §A 5), the non-LTE band
+(§A 5) and the sun in the pencil beam (§A 7).
+"""
 
 import dataclasses
 
@@ -9,19 +22,204 @@ import torch
 from . import constants as const
 from ._cuda import move, resolve
 from .atm import Atmosphere1D
+from .lbl.catalog import LineCatalog
 from .lbl.partfun import PartFunTable
-from .lbl.voigt import absorption_kernel
+from .lbl.voigt import absorption, absorption_kernel
 from .lbl.zeeman import ZeemanCatalog, zeeman_propmat
-from .ops.planck import planck
-from .rtepack.emission import emission_polarized
+from .ops.planck import inv_planck, planck
+from .options import PathBackground, RteOption, check_option
+from .rtepack import emission as E
 
 
-def species_absorption(scene, fg, t, p, v, plain=False):
-    """Absorption [Z, F] at the points t, p [Z], v [Z, S] through the
-    Voigt kernel (its plain version on CPU tensors, or anywhere with
-    plain=True)."""
-    return absorption_kernel(fg, scene.cat, scene.pf, t, p, v, plain=plain,
-                             device=fg.device, dtype=fg.dtype)
+def _emission_fn(rte_option: str):
+    """Scalar emission recursion for an rte_option."""
+    return {
+        "constant": E.emission_unpolarized,
+        "lintau": E.emission_unpolarized_linsrc,
+        "linprop": E.emission_unpolarized_linprop,
+    }[check_option(RteOption, rte_option)]
+
+
+def _emission_fn_polarized(rte_option: str):
+    """Polarized emission recursion for an rte_option."""
+    return {
+        "constant": E.emission_polarized,
+        "lintau": E.emission_polarized_linsrc,
+        "linprop": E.emission_polarized_linprop,
+    }[check_option(RteOption, rte_option)]
+
+
+def _refuse_unported(scene):
+    if getattr(scene, "predef", ()):
+        raise NotImplementedError("predefined absorption models are not ported yet "
+                                  "(ROADMAP §A 5)")
+    if getattr(scene, "ecs_bands", ()):
+        raise NotImplementedError("ECS line-mixing bands are not ported yet (ROADMAP §A 5)")
+
+
+def species_absorption(scene, fg, t, p, v, block: int = 256, backend: str = "xla",
+                       plain: bool = False):
+    """Gas absorption [..., F] at the points t, p [...], v [..., S]: the
+    line catalog by the dense route (backend "xla", differentiable, lines
+    in blocks of `block`; fg [F] or one grid per point [..., F]) or through
+    the Voigt kernel (backend "pallas": its plain version on CPU tensors,
+    or anywhere with plain=True; fg [F])."""
+    _refuse_unported(scene)
+    if scene.cat is None or scene.cat.n_lines == 0:
+        return torch.zeros(t.shape + fg.shape[-1:], dtype=fg.dtype, device=fg.device)
+    if backend == "pallas":
+        shape = t.shape
+        a = absorption_kernel(fg, scene.cat, scene.pf, t.reshape(-1), p.reshape(-1),
+                              v.reshape(-1, v.shape[-1]), plain=plain,
+                              device=fg.device, dtype=fg.dtype)
+        return a.reshape(shape + fg.shape)
+    if backend != "xla":
+        raise ValueError(f"species_absorption: backend {backend!r} (xla, pallas)")
+    return absorption(fg, scene.cat, scene.pf, t, p, v, block=block,
+                      device=fg.device, dtype=fg.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClearskyScene:
+    """Scene state of a clear-sky emission simulation.  predef, ecs_bands
+    and nlte are the JAX package's fields for absorption the port cannot
+    evaluate yet: a scene that sets one raises NotImplementedError.
+    species_names names the rows of atm.vmr."""
+
+    atm: Atmosphere1D
+    cat: LineCatalog | None
+    pf: PartFunTable | None
+    surface_temperature: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor(288.0))
+    surface_emissivity: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor(1.0))
+    predef: tuple = ()
+    species_names: tuple = ()
+    ecs_bands: tuple = ()
+    nlte: object | None = None
+
+
+def _background(scene, f_grid, k, J, r, background, emission):
+    """The radiance entering the far end of the path [F]: the cosmic
+    background ("space"), an emitting surface ("surface") or an emitting
+    surface that reflects the downwelling radiance of the same layers
+    ("surface_reflect", the recursion over the reversed path)."""
+    cmb = planck(f_grid, torch.tensor(const.cosmic_microwave_background_temperature,
+                                      dtype=f_grid.dtype, device=f_grid.device))
+    cmb = cmb * torch.ones_like(f_grid)
+    bg = check_option(PathBackground, background)
+    eps = scene.surface_emissivity
+    if bg == "surface":
+        return eps * planck(f_grid, scene.surface_temperature) + (1.0 - eps) * cmb
+    if bg == "surface_reflect":
+        I_down = emission(k.flip(0), J.flip(0), r.flip(0), cmb)
+        return (1.0 - eps) * I_down + eps * planck(f_grid, scene.surface_temperature)
+    return cmb
+
+
+def _radiance(scene, f_grid, k, pts, r, background, rte_option):
+    """Emission along the paths from point quantities [..., NP, F]."""
+    emission = _emission_fn(rte_option)
+    J = planck(f_grid, pts.t[..., None])
+    k, J, r = torch.movedim(k, -2, 0), torch.movedim(J, -2, 0), torch.movedim(r, -1, 0)
+    I0 = _background(scene, f_grid, k, J, r, background, emission)
+    return emission(k, J, r, I0.expand(k.shape[1:]))
+
+
+def simulate_clearsky(scene: ClearskyScene, f_grid, path_alt, path_dr,
+                      background: str = "space", block: int = 256, path_za=None,
+                      path_aa=None, rte_option: str = "constant", sun=None, sun_za=None,
+                      sun_aa=0.0, scattered_sun: bool = False, depolarization: float = 0.0,
+                      sun_refraction: bool = False, device=None, dtype=None):
+    """Clear-sky spectral radiance [..., F] (W / (m^2 Hz sr)) at the observer.
+
+    path_alt [..., NP] altitudes from the observer to the far end, path_dr
+    [..., NP-1] layer lengths (path.geometric_path_1d); background
+    "space", "surface" or "surface_reflect"; rte_option "constant",
+    "lintau" or "linprop".  Absorption takes the dense route at every path
+    point (lines in blocks of `block`).  With scene.atm.wind set and
+    path_za (and optionally path_aa) given in degrees, each point's
+    absorption is evaluated on its Doppler-shifted grid
+    f (1 - v_los / c).  The sun arguments raise NotImplementedError (not
+    ported yet, ROADMAP §A 7).
+    """
+    if sun is not None or scattered_sun:
+        raise NotImplementedError("the sun in the pencil beam is not ported yet "
+                                  "(ROADMAP §A 7)")
+    if scene.nlte is not None:
+        raise NotImplementedError("the non-LTE band is not ported yet (ROADMAP §A 5)")
+    _emission_fn(rte_option)
+    check_option(PathBackground, background)
+    dev, dt = resolve(device, dtype)
+    as_t = lambda x: torch.as_tensor(x).to(device=dev, dtype=dt)
+    scene = move(scene, dev, dt)
+    f_grid, path_alt, r = as_t(f_grid), as_t(path_alt), as_t(path_dr)
+    pts = scene.atm.at(path_alt)
+    fg = f_grid
+    if scene.atm.wind is not None and path_za is not None:
+        za = torch.deg2rad(as_t(path_za))
+        aa = torch.zeros_like(za) if path_aa is None else torch.deg2rad(as_t(path_aa))
+        aa = aa.expand_as(za)
+        khat = torch.stack([torch.sin(za) * torch.sin(aa), torch.sin(za) * torch.cos(aa),
+                            torch.cos(za)], -1)
+        v_los = (pts.wind * khat).sum(-1)
+        fg = f_grid * (1.0 - v_los / const.c)[..., None]
+    k = species_absorption(scene, fg, pts.t, pts.p, pts.vmr, block=block)
+    return _radiance(scene, f_grid, k, pts, r, background, rte_option)
+
+
+def gas_absorption_levels(scene: ClearskyScene, f_grid, block: int = 256,
+                          backend: str = "xla", plain: bool = False, device=None,
+                          dtype=None):
+    """Gas absorption on the scene's own levels, ascending: [Z, F].
+
+    The level cache of many-geometry batches: in a 1D atmosphere every
+    path samples the same vertical state, so the absorption is computed
+    once here and each path interpolates it
+    (simulate_clearsky_from_levels).  backend "pallas" takes the Voigt
+    kernel, one launch for all levels; "xla" the dense route.  A non-LTE
+    or a windy scene raises ValueError, as in the JAX package: the one
+    needs its per-point source term, the other per-point Doppler grids."""
+    if scene.nlte is not None:
+        raise ValueError("gas_absorption_levels has no NLTE source term: NLTE scenes "
+                         "must use simulate_clearsky (per-point evaluation)")
+    if scene.atm.wind is not None:
+        raise ValueError("gas_absorption_levels cannot cache a wind (Doppler) scene: the "
+                         "per-point frequency shift breaks the shared level grid")
+    dev, dt = resolve(device, dtype)
+    scene, f_grid = move((scene, torch.as_tensor(f_grid)), dev, dt)
+    pts = scene.atm.at(scene.atm.z)
+    return species_absorption(scene, f_grid, pts.t, pts.p, pts.vmr, block=block,
+                              backend=backend, plain=plain)
+
+
+def simulate_clearsky_from_levels(k_levels, scene: ClearskyScene, f_grid, path_alt,
+                                  path_dr, background: str = "space",
+                                  rte_option: str = "constant", device=None, dtype=None):
+    """Clear-sky radiance [..., F] with the absorption interpolated from the
+    level cache k_levels [Z, F] (gas_absorption_levels): linear in
+    altitude, exact at the levels, O(dz^2) between them.  Paths as in
+    simulate_clearsky; no wind."""
+    dev, dt = resolve(device, dtype)
+    as_t = lambda x: torch.as_tensor(x).to(device=dev, dtype=dt)
+    scene = move(scene, dev, dt)
+    k_levels, f_grid, alt, r = (as_t(x) for x in (k_levels, f_grid, path_alt, path_dr))
+    z = scene.atm.z
+    i1 = torch.clamp(torch.searchsorted(z, alt), 1, z.shape[0] - 1)
+    i0 = i1 - 1
+    w = torch.clamp((alt - z[i0]) / (z[i1] - z[i0]), 0.0, 1.0)[..., None]
+    k = k_levels[i0] * (1.0 - w) + k_levels[i1] * w
+    return _radiance(scene, f_grid, k, scene.atm.at(alt), r, background, rte_option)
+
+
+def simulate_clearsky_bt(scene, f_grid, path_alt, path_dr, background="space",
+                         device=None, dtype=None):
+    """simulate_clearsky as Planck brightness temperature [..., F] (K)."""
+    dev, dt = resolve(device, dtype)
+    f_grid = torch.as_tensor(f_grid).to(device=dev, dtype=dt)
+    I = simulate_clearsky(scene, f_grid, path_alt, path_dr, background=background,
+                          device=dev, dtype=dt)
+    return inv_planck(I, f_grid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,22 +236,23 @@ class ZeemanScene:
 
 
 def simulate_clearsky_polarized(scene: ZeemanScene, f_grid, path_alt, path_za,
-                                path_dr, background="space", device=None,
-                                dtype=None):
+                                path_dr, background="space", rte_option="constant",
+                                device=None, dtype=None):
     """Full-Stokes clear-sky radiance [F, 4] at the observer.
 
     path_alt, path_za (line-of-sight zenith angle per point, degrees, for
     the magnetic geometry) [np], path_dr [np-1] (path.geometric_path_1d);
     background "space" (the cosmic background) or "surface" (a blackbody
-    at scene.surface_temperature).  The propagation matrices come from
-    zeeman_propmat's dense route for every path point at once, as the
-    JAX function takes the XLA route; the emission is the "constant"
-    layer recursion.  Not ported yet: "surface_reflect", the non-LTE
-    band, and the lintau and linprop recursions.
+    at scene.surface_temperature); rte_option "constant", "lintau" or
+    "linprop" (the polarized recursions of rtepack.emission).  The
+    propagation matrices come from zeeman_propmat's dense route for every
+    path point at once, as the JAX function takes the XLA route.  Not
+    ported yet: "surface_reflect" and the non-LTE band (ROADMAP §A 4).
     """
     if background not in ("space", "surface"):
         raise ValueError(f"simulate_clearsky_polarized: background {background!r} "
                          "is not supported (space, surface)")
+    emission = _emission_fn_polarized(rte_option)
     dev, dt = resolve(device, dtype)
     as_t = lambda x: torch.as_tensor(x).to(device=dev, dtype=dt)
     scene = move(scene, dev, dt)
@@ -67,4 +266,4 @@ def simulate_clearsky_polarized(scene: ZeemanScene, f_grid, path_alt, path_za,
             else as_t(const.cosmic_microwave_background_temperature))
     I0 = torch.zeros(f_grid.shape + (4,), dtype=dt, device=dev)
     I0[:, 0] = planck(f_grid, t_bg)
-    return emission_polarized(k, J, r, I0)
+    return emission(k, J, r, I0)

@@ -51,7 +51,8 @@ def gas_absorption_profile(scene: AllskyScene, f_grid, plain: bool = False,
     dev, dt = resolve(device, dtype)
     scene, f_grid = move((scene, f_grid), dev, dt)
     pts = scene.atm.at(scene.atm.z.flip(0))
-    k = species_absorption(scene, f_grid, pts.t, pts.p, pts.vmr, plain=plain)
+    k = species_absorption(scene, f_grid, pts.t, pts.p, pts.vmr, backend="pallas",
+                           plain=plain)
     return k.t().contiguous()
 
 

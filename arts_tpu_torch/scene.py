@@ -11,7 +11,9 @@ build_stage23_case gives the DISORT stage 2+3 kernel random problems on
 which its elimination shows, build_stage1_case the stage 1 kernel random
 scattering problems on which its Jacobi sweeps show, build_zeeman_mp_case
 the zeeman_mp kernel random pole records on which every part of its sum
-shows.
+shows.  build_clearsky_measurement is an ATMS 183 GHz scan line over the
+benchmark scene, build_clearsky_retrieval a water-vapour retrieval from
+25 Gaussian channels on the window scene without its cloud.
 """
 
 import dataclasses
@@ -27,16 +29,19 @@ from .disort import DisortInput
 from .disort import fused_kernel as FK
 from .disort.quadrature import double_gauss, lambda_tables
 from .disort.solver import solve_terms
+from .fwd import ClearskyScene, simulate_clearsky
 from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky
 from .io.hitran import read_par, zeeman_catalog_from_par
 from .lbl.catalog import build_catalog
 from .lbl.partfun import rigid_rotor_table
 from .lbl.tmodel import Law
 from .lbl.zeeman import pad_zeeman_catalog, tune_zeeman_profile
+from .path import geometric_path_1d
 from .ops.zeeman_mp_kernel import MP_TERMS, NCOMP, pole_records
 from .retrieval import covariance
 from .retrieval.targets import RetrievalTarget, StateMapping
 from .scattering import HenyeyGreenstein
+from .sensor import SensorArray, gaussian_channels
 
 
 def synth_par_rows(n_lines=2048, fmin=160e9, fmax=260e9, seed=7):
@@ -326,5 +331,135 @@ def build_cloud_retrieval(n_lev=51, n_freq=4096, nquad=16, device=None, dtype=No
         mapping=mapping, nquad=nquad, cloud_z=z[idx], x_a=x_a, S_a=S_a,
         S_e=x_a.new_zeros(0), x_true=x_true, y_obs=x_a.new_zeros(0))
     y = case.forward(x_true).double()
+    noise = 1e-4 * float(y.abs().mean())
+    return dataclasses.replace(case, y_obs=y, S_e=torch.full_like(y, noise**2))
+
+
+# ATMS (Suomi NPP / NOAA-20): 96 beam positions of 1.11 deg from -52.725
+# to 52.725 deg from an 824 km orbit; the five 183.31 GHz channels 18-22,
+# offsets and bandwidths (GHz), each sideband its own Gaussian element
+ATMS_ORBIT = 824e3
+ATMS_SCAN_DEG = 52.725
+ATMS_183_OFFSETS = (7.0, 4.5, 3.0, 1.8, 1.0)
+ATMS_183_FWHM = (2.0, 2.0, 1.0, 1.0, 0.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClearskyMeasurement:
+    """A scan line of clear-sky measurements: scene, frequency grid, one
+    path per beam position (PathGeometry) and the sensor weights."""
+
+    scene: ClearskyScene
+    f_grid: torch.Tensor
+    paths: tuple
+    sensor: SensorArray
+    scan_deg: np.ndarray  # [G] scan angle per beam position
+
+
+def build_clearsky_measurement(n_lev=60, n_freq=4096, n_lines=2048, n_scan=96,
+                               max_step=1000.0, device=None, dtype=None):
+    """One ATMS scan line over the benchmark scene (build_scene without its
+    cloud: 2048 lines with a 25 GHz cutoff, 4096 frequencies 160-260 GHz,
+    60 levels to 80 km, a 288 K surface of emissivity 0.9): n_scan beam
+    positions evenly spaced over +-52.725 deg from 824 km (96: ATMS's
+    1.11 deg steps), each a geometric_path_1d to the surface in steps of
+    at most max_step, and ATMS's five 183.31 GHz channels (+-7.0, 4.5,
+    3.0, 1.8, 1.0 GHz; fwhm 2.0, 2.0, 1.0, 1.0, 0.5 GHz), each sideband
+    its own Gaussian element: 10 elements per position, in position
+    order."""
+    dev, dt = resolve(device, dtype)
+    allsky, f = build_scene(n_lev, n_freq, n_lines, device=dev, dtype=dt)
+    scene = ClearskyScene(atm=allsky.atm, cat=allsky.cat, pf=allsky.pf,
+                          surface_temperature=allsky.surface_temperature,
+                          surface_emissivity=torch.tensor(0.9, dtype=dt, device=dev))
+    scan = np.linspace(-ATMS_SCAN_DEG, ATMS_SCAN_DEG, n_scan)
+    z_top = float(allsky.atm.z[-1])
+    paths = tuple(geometric_path_1d(ATMS_ORBIT, 180.0 - abs(a), 0.0, z_top, max_step)
+                  for a in scan)
+    return ClearskyMeasurement(scene=scene, f_grid=f, paths=paths,
+                               sensor=atms_183_channels(f, n_scan, device=dev, dtype=dt),
+                               scan_deg=scan)
+
+
+def atms_183_channels(f_grid, n_geo, device=None, dtype=None):
+    """ATMS's five 183.31 GHz channels on f_grid for each of n_geo
+    geometries: 10 Gaussian elements per geometry (lower, then upper
+    sideband of each channel), in geometry order."""
+    off = np.asarray(ATMS_183_OFFSETS) * 1e9
+    centers = 183.31e9 + np.stack([-off, off], -1).ravel()
+    fwhm = np.repeat(np.asarray(ATMS_183_FWHM) * 1e9, 2)
+    return gaussian_channels(torch.as_tensor(f_grid).double().cpu().numpy(),
+                             np.tile(centers, n_geo), np.tile(fwhm, n_geo),
+                             geo_idx=np.repeat(np.arange(n_geo), centers.size),
+                             device=device, dtype=dtype)
+
+
+def _vmr0_target():
+    """The first species' VMR profile relative to the reference scene's."""
+    def set_(s, v):
+        vmr = torch.cat([v[None], s.atm.vmr[1:]], 0)
+        return dataclasses.replace(s, atm=dataclasses.replace(s.atm, vmr=vmr))
+
+    return RetrievalTarget("vmr0", lambda s: s.atm.vmr[0], set_, transform="rel")
+
+
+@dataclasses.dataclass(frozen=True)
+class ClearskyRetrieval:
+    """A Gauss-Newton water-vapour retrieval from clear-sky nadir
+    radiances: the state is the first species' VMR relative to the
+    reference profile at every level; the measurement 25 Gaussian channels
+    of the TOA nadir radiance over a surface.  The state and the
+    covariances are float64; the forward model runs in the mapping's
+    dtype on its device."""
+
+    f_grid: torch.Tensor  # [F]
+    alt: torch.Tensor  # [np] nadir path from 100 km, observer first
+    dr: torch.Tensor  # [np-1]
+    sensor: SensorArray
+    mapping: StateMapping
+    x_a: torch.Tensor  # [n] prior (ones)
+    S_a: torch.Tensor  # [n, n]
+    S_e: torch.Tensor  # [m] noise variances
+    x_true: torch.Tensor  # [n]
+    y_obs: torch.Tensor  # [m] forward(x_true)
+
+    @property
+    def scene(self):
+        return self.mapping.ref_scene
+
+    def forward(self, x):
+        m = self.mapping
+        I = simulate_clearsky(m.to_scene(x.to(m.dtype)), self.f_grid, self.alt, self.dr,
+                              background="surface", device=m.device, dtype=m.dtype)
+        return self.sensor.apply(I[None])
+
+
+def build_clearsky_retrieval(n_lev=51, device=None, dtype=None):
+    """The water-vapour retrieval of the JAX package's examples/5_oem_retrieval.py:
+    window_scene(n_lev) without its cloud (two H2O-like lines, a 1 %
+    absorber decaying with a 2 km scale height, a 288 K black surface),
+    101 frequencies 170-240 GHz, a nadir path from 100 km in steps of at
+    most 1 km, 25 Gaussian channels 175-235 GHz of fwhm 2 GHz; truth
+    1 + 0.2 exp(-((z - 3 km)/2.5 km)^2 / 2) times the reference profile,
+    prior ones with sd 0.3 and an exponential correlation over 10 km,
+    y_obs = forward(truth), noise sd 1e-4 of mean |y_obs|."""
+    dev, dt = resolve(device, dtype)
+    ws = window_scene(n_lev, device=dev, dtype=dt)
+    scene = ClearskyScene(atm=ws.atm, cat=ws.cat, pf=ws.pf,
+                          surface_temperature=ws.surface_temperature)
+    f = np.linspace(170e9, 240e9, 101)
+    path = geometric_path_1d(100e3, 180.0, 0.0, 80e3, 1000.0)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    sensor = gaussian_channels(f, np.linspace(175e9, 235e9, 25), 2e9, device=dev, dtype=dt)
+    mapping = StateMapping([_vmr0_target()], scene, device=dev, dtype=dt)
+    z = scene.atm.z.double().cpu().numpy()
+    truth = 1.0 + 0.2 * np.exp(-0.5 * ((z - 3e3) / 2.5e3) ** 2)
+    d = np.abs(z[:, None] - z[None, :])
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    case = ClearskyRetrieval(
+        f_grid=t(f), alt=t(path.alt), dr=t(path.dr), sensor=sensor, mapping=mapping,
+        x_a=f64(np.ones(z.size)), S_a=f64(0.3**2 * np.exp(-d / 10e3)), S_e=f64(np.zeros(0)),
+        x_true=f64(truth), y_obs=f64(np.zeros(0)))
+    y = case.forward(case.x_true).double()
     noise = 1e-4 * float(y.abs().mean())
     return dataclasses.replace(case, y_obs=y, S_e=torch.full_like(y, noise**2))

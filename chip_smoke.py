@@ -71,14 +71,35 @@
    Gauss-Newton retrieval from the prior (counters set to 0 just before,
    read just after), held to the truth, and the times of one forward,
    one Jacobian and one Gauss-Newton iteration;
-11. prints each kernel's launches on its path, time, plain-version time,
+11. (after phase 8) drives the clear-sky measurement path at full width
+   (scene.build_clearsky_measurement: one ATMS scan line of 96 beam
+   positions from 824 km over the benchmark scene without its cloud, the
+   five 183 GHz channels as 960 Gaussian elements) through
+   measurement_vector with the level-cached observer on the Voigt kernel:
+   float32 against the float64 plain route on the same inputs (1e-4 of
+   scale, with the largest brightness-temperature difference), two
+   float32 runs bit-identical, the float64 kernel route against the plain
+   route (1e-9 of scale), the cached observer against the direct one on
+   two level-aligned paths (the Pallas-vs-XLA bound), the median of 5
+   float32 calls with the counts set to 0 just before and read just after
+   (one launch of the Voigt kernel per call), a profiled call, the
+   measurement Jacobian d y / d H2O VMR at all frequencies by forward
+   mode (in chunks of 15 columns) with its time and peak memory, its three
+   largest columns against the float64 route on the same inputs (1e-4 of
+   each column's largest entry), and the clear-sky water-vapour retrieval
+   (scene.build_clearsky_retrieval, float64), each Gauss-Newton iterate on
+   the card against the CPU's (1e-10 of scale), converged within 0.02 of
+   the truth below 12 km;
+12. prints each kernel's launches on its path, time, plain-version time,
    library time, largest difference and bound as one JSON line, then the
-   card line, then {"ok": true, "device": {...}} as the last line.
+   total seconds and the card line, then {"ok": true, "device": {...}} as
+   the last line.
 
 Every check raises on failure.  Without a CUDA device the script exits
 with status 1 and prints no result.  It imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import math
 import re
@@ -157,6 +178,26 @@ def bound(flops, nbytes_):
     t_ops = flops / FP32_FLOPS * 1e3
     t_mem = nbytes_ / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def log_profile(what, fn, top):
+    """Profile one call of fn: log its wall time, the device busy share and
+    operation count, and the top device operations by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages() if e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profiled {what}: wall {wall_ms:.2f} ms (profiler on), device busy "
+        f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} device ops")
+    for ms, count, key in rows[:top]:
+        log(f"  {ms:8.3f} ms  x{count:<5d} {key[:100]}")
 
 
 def ge_flops(n, k):
@@ -577,21 +618,7 @@ def phase_main_path(scenes, dev, _cuda, reps=5):
         f"DISORT {np.median(dis_ms):.2f} ms {[round(t, 3) for t in dis_ms]}")
 
     # one profiled run: device busy share and time by kernel
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        dis(lbl())
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages() if e.self_device_time_total > 0),
-                  reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"profiled main-path run: wall {wall_ms:.2f} ms (profiler on), device busy "
-        f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} device ops")
-    for ms, count, key in rows[:12]:
-        log(f"  {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+    log_profile("main-path run", lambda: dis(lbl()), 12)
 
     # end-to-end guard: the float64 plain route on every 16th frequency, on
     # the same inputs (the float32 scene and grid, cast up); the guard
@@ -1083,8 +1110,6 @@ def phase_zeeman_mp(zin, dev):
 def phase_zeeman_stage(zin, dev, _cuda, reps=5):
     """bench.py's Zeeman stage: zeeman_propmat_profile timed, guarded
     against the dense route at the top and bottom levels."""
-    from torch.profiler import ProfilerActivity, profile
-
     from arts_tpu_torch.lbl.zeeman import zeeman_propmat, zeeman_propmat_profile
 
     d = zin[torch.float32]
@@ -1118,19 +1143,7 @@ def phase_zeeman_stage(zin, dev, _cuda, reps=5):
         f"{d['zcat'].cat.n_lines} lines; median of {reps} runs, {med * 1e3:.2f} ms; runs "
         f"{[round(t * 1e3, 3) for t in times]} ms) on {card_line()}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        stage()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages() if e.self_device_time_total > 0),
-                  reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"profiled Zeeman stage run: wall {wall_ms:.2f} ms (profiler on), device busy "
-        f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} device ops")
-    for ms, count, key in rows[:10]:
-        log(f"  {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+    log_profile("Zeeman stage run", stage, 10)
 
     # the stage's parts, each ending in a synchronize: pole moments (tensor
     # code), the zeeman_mp kernel, the near corrections (tensor code)
@@ -1297,21 +1310,208 @@ def phase_retrieval(dev, _cuda):
         f"{gn_ms:.2f} ms {gn_runs}; launches per GN iteration {per_iter}")
 
     # one profiled GN iteration: device busy share and time by kernel
-    from torch.profiler import ProfilerActivity, profile
+    log_profile("GN iteration", gn_iteration, 12)
+    return launches
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+# the measurement Jacobian: lines per block of the dense route under
+# forward mode, state columns per chunk, the bound of the columns held
+# against the float64 route (of each column's largest entry), and the
+# relative step and bound of the float64 columns' central differences
+JAC_BLOCK = 16
+JAC_CHUNK = 15
+JAC_CHECK_TOL = 1e-4
+JAC_FD_STEP = 1e-4
+JAC_FD_TOL = 1e-5
+
+
+def phase_clearsky_measurement(dev, _cuda, reps=5):
+    """The clear-sky measurement path at full width (see 11. above);
+    returns the launches per kernel of the timed calls."""
+    from arts_tpu_torch._cuda import move
+    from arts_tpu_torch.ops.planck import inv_planck
+    from arts_tpu_torch.retrieval import RetrievalTarget, StateMapping, oem
+    from arts_tpu_torch.scene import build_clearsky_measurement, build_clearsky_retrieval
+    from arts_tpu_torch.sensor import (clearsky_observer, clearsky_observer_cached,
+                                       measurement_jacobian, measurement_vector)
+
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    case = build_clearsky_measurement(device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    paths, F = list(case.paths), case.f_grid.numel()
+    G, npts = len(paths), [p.n_points for p in case.paths]
+    log(f"clear-sky measurement case built in {time.perf_counter() - t0:.1f} s: {G} beam "
+        f"positions ({min(npts)}-{max(npts)} path points), {F} frequencies x "
+        f"{case.scene.cat.n_lines} lines x {case.scene.atm.z.numel()} levels, "
+        f"{case.sensor.n_elements} elements")
+
+    def y_of(observer, dtype):
+        return measurement_vector(case.scene, case.sensor, case.f_grid, paths,
+                                  observer=observer, device=dev, dtype=dtype)
+
+    # float32 kernel route, float64 kernel and plain routes, same inputs
+    y32 = y_of(clearsky_observer_cached(backend="pallas"), f32)
+    require(torch.equal(y32, y_of(clearsky_observer_cached(backend="pallas"), f32)),
+            "clear-sky y float32: two runs differ")
+    y64p = y_of(clearsky_observer_cached(backend="pallas", plain=True), f64)
+    y64k = y_of(clearsky_observer_cached(backend="pallas"), f64)
+    require(tuple(y32.shape) == (case.sensor.n_elements,), f"y shape {tuple(y32.shape)}")
+    e32, r32 = close(y32, y64p, 0.0, 1e-4, "clear-sky y float32 vs float64 plain route")
+    e64, r64 = close(y64k, y64p, 0.0, 1e-9, "clear-sky y float64 kernel vs plain route")
+    f_el = case.sensor.apply(case.f_grid.double().expand(G, F).contiguous())
+    dbt = float((inv_planck(y32.double(), f_el) - inv_planck(y64p, f_el)).abs().max())
+    log(f"clear-sky y float32 kernel route vs float64 plain route: {r32:.3e} of scale "
+        f"(limit 1e-4), max |dTb| {dbt:.4e} K; two float32 runs bit-identical; float64 "
+        f"kernel vs plain: {r64:.3e} of scale (limit 1e-9); Tb "
+        f"{float(inv_planck(y64p, f_el).min()):.2f}-{float(inv_planck(y64p, f_el).max()):.2f} K")
+
+    # the cached observer against the direct one, level-aligned paths
+    sc64, fg64 = move(case.scene, dev, f64), case.f_grid.double()
+    z = sc64.atm.z
+    alts = torch.stack([z.flip(0), z])
+    drs = torch.stack([-torch.diff(z.flip(0)), torch.diff(z)])
+    zas = torch.zeros_like(alts)
+    t0 = time.perf_counter()
+    direct = clearsky_observer(block=64)(sc64, fg64, alts, drs, zas, "surface")
+    torch.cuda.synchronize()
+    t_direct = time.perf_counter() - t0
+    cached = clearsky_observer_cached(backend="pallas")(sc64, fg64, alts, drs, zas, "surface")
+    _, rc = close(cached, direct, 2e-6, 5e-7, "cached (pallas) vs direct observer")
+    log(f"cached observer (pallas) vs direct (xla), nadir and zenith level-aligned paths, "
+        f"float64: {rc:.3e} of scale (atol 5e-7 * scale, rtol 2e-6); direct route "
+        f"{t_direct:.2f} s")
+    del direct, cached, y64p, y64k
+
+    # the path's timings and counts, float32
+    obs = clearsky_observer_cached(backend="pallas")
+    y_of(obs, f32)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times = []
+    for _ in range(reps):
         t0 = time.perf_counter()
-        gn_iteration()
+        y = y_of(obs, f32)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages() if e.self_device_time_total > 0),
-                  reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"profiled GN iteration: wall {wall_ms:.2f} ms (profiler on), device busy "
-        f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} device ops")
-    for ms, count, key in rows[:12]:
-        log(f"  {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+        times.append(time.perf_counter() - t0)
+    launches = dict(_cuda.LAUNCHES)
+    log(f"clear-sky measurement launches over {reps} calls: {launches}")
+    require(launches["voigt_sum"] == reps, f"voigt_sum launched {launches['voigt_sum']} "
+            f"times in {reps} calls (expected one per call)")
+    require(bool(torch.isfinite(y).all() and (y > 0).all()), "non-finite or non-positive y")
+    med = float(np.median(times))
+    log(f"clear-sky measurement, float32, {G} geometries x {F} freqs: {G * F / med:.1f} "
+        f"geometry-frequencies/s (median of {reps} calls, {med * 1e3:.2f} ms; calls "
+        f"{[round(t * 1e3, 3) for t in times]} ms); voigt_sum launches per call "
+        f"{launches['voigt_sum'] / reps:g}")
+    log_profile("clear-sky measurement call", lambda: y_of(obs, f32), 10)
+
+    # d y / d H2O VMR (60 columns) through the dense route, forward mode
+    def with_field(s, field, v):
+        if field == "vmr":
+            v = torch.cat([v[None], s.atm.vmr[1:]], 0)
+        return dataclasses.replace(s, atm=dataclasses.replace(s.atm, **{field: v}))
+
+    def profile(s, field):
+        return s.atm.vmr[0] if field == "vmr" else s.atm.t
+
+    def jacobian(dtype, field="vmr", levels=None):
+        """d y / d (H2O VMR or T) at `levels` (None: every level)."""
+        if levels is None:
+            target = RetrievalTarget(field, lambda s: profile(s, field),
+                                     lambda s, v: with_field(s, field, v))
+        else:
+            idx = torch.tensor(levels, device=dev)
+            target = RetrievalTarget(
+                field, lambda s: profile(s, field)[idx],
+                lambda s, v: with_field(s, field, profile(s, field).index_put((idx,), v)))
+        mapping = StateMapping([target], case.scene, device=dev, dtype=dtype)
+        return measurement_jacobian(
+            case.scene, case.sensor, case.f_grid.to(dtype), paths, mapping,
+            observer=clearsky_observer_cached(backend="xla", block=JAC_BLOCK),
+            chunk_size=JAC_CHUNK, device=dev, dtype=dtype)[1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    K = jacobian(f32)
+    torch.cuda.synchronize()
+    t_jac, m_jac = time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+    Z = case.scene.atm.z.numel()
+    require(tuple(K.shape) == (case.sensor.n_elements, Z), f"Jacobian shape {tuple(K.shape)}")
+    require(bool(torch.isfinite(K).all()) and float(K.abs().max()) > 0, "bad Jacobian")
+    # the three columns with the largest entries against the float64 route
+    # on the same inputs (the lowest levels' columns are below float32's
+    # range: the 183 GHz line hides them)
+    colmax = K.abs().amax(0)
+    check = sorted(torch.topk(colmax, 3).indices.tolist())
+    K64 = {f: jacobian(f64, f, check) for f in ("vmr", "t")}
+    errs = [float((K[:, i].double() - K64["vmr"][:, j]).abs().max()
+                  / K64["vmr"][:, j].abs().max()) for j, i in enumerate(check)]
+
+    # the float64 columns of VMR and T at those levels against central
+    # differences of the float64 route (steps of JAC_FD_STEP of the value):
+    # comparing two dtypes cannot see a derivative rule that both share,
+    # and only T reaches wofz's
+    def y64(field, i, dv):
+        v = profile(sc64, field).clone()
+        v[i] += dv
+        return measurement_vector(
+            with_field(sc64, field, v), case.sensor, fg64, paths,
+            observer=clearsky_observer_cached(backend="xla", block=JAC_BLOCK), device=dev,
+            dtype=f64)
+
+    fd_errs = {}
+    for field in K64:
+        for j, i in enumerate(check):
+            dv = JAC_FD_STEP * float(profile(sc64, field)[i])
+            fd = (y64(field, i, dv) - y64(field, i, -dv)) / (2 * dv)
+            fd_errs[f"{field}{i}"] = float((K64[field][:, j] - fd).abs().max()
+                                           / fd.abs().max())
+    log(f"measurement Jacobian d y / d H2O VMR ({Z} columns, forward mode in chunks of "
+        f"{JAC_CHUNK}, dense route in blocks of {JAC_BLOCK} lines), float32, all {F} "
+        f"frequencies: {t_jac:.2f} s, peak {m_jac / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}; columns at levels "
+        f"{check} (largest entry {float(colmax[check].min() / colmax.max()):.3g}-1 of K's; "
+        f"level 0's {float(colmax[0] / colmax.max()):.3g}) against the float64 route: "
+        f"{[f'{e:.3e}' for e in errs]} of each column's largest entry "
+        f"(limit {JAC_CHECK_TOL:g}); float64 VMR and T columns at those levels against "
+        f"central differences: { {k: f'{e:.3e}' for k, e in fd_errs.items()} } "
+        f"(limit {JAC_FD_TOL:g})")
+    require(max(errs) <= JAC_CHECK_TOL,
+            f"Jacobian float32 vs float64 columns {errs} > {JAC_CHECK_TOL:g}")
+    require(max(fd_errs.values()) <= JAC_FD_TOL,
+            f"Jacobian float64 columns vs central differences {fd_errs} > {JAC_FD_TOL:g}")
+    del K, K64
+
+    # the clear-sky water-vapour retrieval, float64, card against CPU
+    cpu = torch.device("cpu")
+    rets = {d: build_clearsky_retrieval(device=d, dtype=f64) for d in (dev, cpu)}
+
+    def gn(d, max_iter):
+        c = rets[d]
+        return oem(c.forward, c.x_a, c.y_obs, c.S_a, c.S_e, method="gn", max_iter=max_iter,
+                   device=d)
+
+    gn(dev, 1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gn(dev, 8)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    diffs = []
+    for k in range(1, res.n_iter + 1):
+        x_card, x_cpu = gn(dev, k).x.cpu(), gn(cpu, k).x
+        diffs.append(float((x_card - x_cpu).abs().max() / x_cpu.abs().max()))
+    zc = rets[cpu].scene.atm.z
+    err = float((res.x.cpu() - rets[cpu].x_true).abs()[zc < 12e3].max())
+    log(f"clear-sky retrieval (float64): {res.n_iter} GN iterations, converged "
+        f"{res.converged}, max error below 12 km {err:.4e} (limit 0.02), {run_s:.3f} s, "
+        f"{run_s / res.n_iter * 1e3:.1f} ms per GN iteration; card vs CPU per iterate "
+        f"{[f'{d:.2e}' for d in diffs]} of scale (limit 1e-10)")
+    require(res.converged and err < 0.02, f"retrieval: converged {res.converged}, error {err}")
+    require(max(diffs) <= 1e-10, f"retrieval card vs CPU {max(diffs):.3e} > 1e-10")
     return launches
 
 
@@ -1347,6 +1547,10 @@ def main():
     kernels.append(mp)
     phase_clearsky_polarized(dev)
     del zin
+    torch.cuda.empty_cache()
+    kernels[0]["launches_on"] = {
+        "allsky_main_path": kernels[0]["launches"],
+        "clearsky_measurement": phase_clearsky_measurement(dev, _cuda)["voigt_sum"]}
     eigh["launches"] = phase_retrieval(dev, _cuda)["eigh_jacobi"]
     kernels += [eigh, fused_eigen]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -458,3 +458,46 @@ def test_stage1_kernel_float32_runs_bit_identical(dev):
     eig = ins[:4] + (ins[6], 6)
     for a, b in zip(EK.eigen_lanes(*eig), EK.eigen_lanes(*eig)):
         assert torch.equal(a, b)
+
+
+def _clearsky_case(dev, dtype):
+    from arts_tpu_torch.scene import build_clearsky_measurement
+
+    return build_clearsky_measurement(n_lev=12, n_freq=1024, n_lines=256, n_scan=6,
+                                      max_step=4000.0, device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-9), (torch.float32, 1e-4)])
+def test_cached_clearsky_kernel_route_matches_plain(dev, dtype, tol):
+    """The level-cached observer's kernel route against the float64 plain
+    route on the same inputs (a small ATMS scan line): float64 within 1e-9
+    of scale, float32 within 1e-4, chip_smoke's bounds; the kernel is
+    launched once per measurement vector."""
+    from arts_tpu_torch import _cuda
+    from arts_tpu_torch.sensor import clearsky_observer_cached, measurement_vector
+
+    case = _clearsky_case(dev, torch.float32)
+    run = lambda dt, **kw: measurement_vector(
+        case.scene, case.sensor, case.f_grid, list(case.paths),
+        observer=clearsky_observer_cached(backend="pallas", **kw), device=dev, dtype=dt)
+    want = run(torch.float64, plain=True)
+    _cuda.reset_launches()
+    got = run(dtype).double()
+    assert _cuda.LAUNCHES["voigt_sum"] == 1
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_sensor_contraction_float32_runs_bit_identical(dev):
+    """SensorArray.apply sums each element's weights in a fixed order (no
+    atomics): two float32 contractions of the same radiances, and two
+    measurement vectors, give the same bits."""
+    from arts_tpu_torch.sensor import clearsky_observer_cached, measurement_vector
+
+    case = _clearsky_case(dev, torch.float32)
+    G, F = len(case.paths), case.f_grid.numel()
+    I = torch.rand(G, F, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    assert torch.equal(case.sensor.apply(I), case.sensor.apply(I))
+    run = lambda: measurement_vector(case.scene, case.sensor, case.f_grid, list(case.paths),
+                                     observer=clearsky_observer_cached(backend="pallas"),
+                                     device=dev)
+    assert torch.equal(run(), run())

@@ -43,6 +43,17 @@ SPECIES = ["H2O", "O2"]
 MAG, ZA, AA = [10e-6, -20e-6, 40e-6], 65.0, 30.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: the dense route's
+    many small operations wait on the whole thread pool after each one,
+    which costs tens of seconds when the test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f32(a):
     """float64 values that float32 represents exactly."""
     return np.asarray(a, dtype=np.float32).astype(np.float64)
