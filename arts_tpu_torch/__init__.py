@@ -6,8 +6,12 @@ its plain PyTorch version:
     the fused DISORT solve (gas_absorption_profile, simulate_allsky);
   * Zeeman: polarized propagation matrices through the polarized Voigt
     kernel (lbl.zeeman.zeeman_propmat, backend="pallas") or the
-    parent-pole kernel (lbl.zeeman.zeeman_propmat_profile), and the
-    polarized clear-sky radiance (simulate_clearsky_polarized);
+    parent-pole kernel (lbl.zeeman.zeeman_propmat_profile), the IGRF-13
+    field (atm.igrf) and Faraday rotation (lbl.faraday), and the
+    polarized clear-sky radiance (simulate_clearsky_polarized) over space,
+    an emitting or a reflecting surface, with an optional non-LTE band
+    (lbl.nlte: NlteField, nlte_fit_profile), e.g.
+    scene.build_zeeman_nlte_scene;
   * retrieval: the differentiable all-sky route
     (simulate_allsky(fast_linalg=False), through the Jacobi eigh kernel),
     Jacobians by torch.func, and optimal estimation (retrieval.oem) on
@@ -34,6 +38,9 @@ from .fwd import (  # noqa: F401
     simulate_clearsky_polarized,
 )
 from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky  # noqa: F401
+from .atm.igrf import igrf13, magnetic_profile  # noqa: F401
+from .lbl.faraday import add_faraday  # noqa: F401
+from .lbl.nlte import NlteField, nlte_fit_profile  # noqa: F401
 
 from .sensor import (  # noqa: F401
     SensorArray,

@@ -8,6 +8,7 @@ h = 6.626_070_15e-34  # Planck constant [J s]
 k = 1.380_649e-23  # Boltzmann constant [J/K]
 NA = 6.022_140_76e23  # Avogadro constant [1/mol]
 R = NA * k  # molar gas constant [J/(mol K)]
+e = 1.602_176_634e-19  # elementary charge [C]
 bohr_magneton = 9.274_010_0657e-24  # [J/T]
 
 pi = math.pi

@@ -14,9 +14,18 @@ numpy arrays:
 clearsky_scene_from_numpy takes a clear-sky scene the same way:
 
     {"atm": {"z", "t", "p", "vmr", "wind" (optional)},
-     "cat": {...}, "pf": {"t_grid", "q_grid"},
+     "cat": {...} (optional), "pf": {"t_grid", "q_grid"} (optional),
      "surface_temperature": scalar,
-     "surface_emissivity": scalar (optional, default 1)}
+     "surface_emissivity": scalar (optional, default 1),
+     "nlte": {"z", "r", "cat", "up_idx", "lo_idx"} (optional)}
+
+and zeeman_scene_from_numpy a polarized one:
+
+    {"atm": {"z", "t", "p", "vmr", "mag"},
+     "zcat": {zeeman_catalog_from_numpy's dict}, "pf": {"t_grid", "q_grid"},
+     "surface_temperature": scalar,
+     "surface_reflectance": scalar (optional, default 0),
+     "nlte": {...} (optional)}
 
 sensor_from_numpy a sensor's weights: {"row", "geo", "freq", "w",
 "n_elements"}.  zeeman_catalog_from_numpy and
@@ -29,9 +38,10 @@ import torch
 
 from ._cuda import resolve
 from .atm import Atmosphere1D
-from .fwd import ClearskyScene
+from .fwd import ClearskyScene, ZeemanScene
 from .fwd_allsky import AllskyScene
 from .lbl.catalog import catalog_from_arrays
+from .lbl.nlte import NlteField
 from .lbl.partfun import PartFunTable
 from .lbl.zeeman import PaddedZeemanCatalog, ZeemanCatalog
 from .scattering import HenyeyGreenstein
@@ -59,10 +69,35 @@ def clearsky_scene_from_numpy(d, device=None, dtype=None) -> ClearskyScene:
     atm = Atmosphere1D(**{k: t(a[k]) for k in ("z", "t", "p", "vmr")},
                        wind=None if a.get("wind") is None else t(a["wind"]))
     return ClearskyScene(
-        atm=atm, cat=catalog_from_arrays(d["cat"], dev, dt),
-        pf=PartFunTable(t_grid=t(d["pf"]["t_grid"]), q_grid=t(d["pf"]["q_grid"])),
+        atm=atm,
+        cat=None if d.get("cat") is None else catalog_from_arrays(d["cat"], dev, dt),
+        pf=None if d.get("pf") is None else PartFunTable(t_grid=t(d["pf"]["t_grid"]),
+                                                          q_grid=t(d["pf"]["q_grid"])),
         surface_temperature=t(d["surface_temperature"]),
         surface_emissivity=t(d.get("surface_emissivity", 1.0)),
+        nlte=None if d.get("nlte") is None else nlte_field_from_numpy(d["nlte"], dev, dt),
+    )
+
+
+def nlte_field_from_numpy(d, device=None, dtype=None) -> NlteField:
+    """NlteField from {"z", "r", "cat": {the LineCatalog fields}, "up_idx",
+    "lo_idx"}."""
+    dev, dt = resolve(device, dtype)
+    ints, flts = _tensors(dev, dt)
+    return NlteField(z=flts(d["z"]), r=flts(d["r"]), cat=catalog_from_arrays(d["cat"], dev, dt),
+                     up_idx=ints(d["up_idx"]), lo_idx=ints(d["lo_idx"]))
+
+
+def zeeman_scene_from_numpy(d, device=None, dtype=None) -> ZeemanScene:
+    dev, dt = resolve(device, dtype)
+    t = lambda a: torch.tensor(np.asarray(a, dtype=np.float64), dtype=dt, device=dev)
+    return ZeemanScene(
+        atm=Atmosphere1D(**{k: t(d["atm"][k]) for k in ("z", "t", "p", "vmr", "mag")}),
+        zcat=zeeman_catalog_from_numpy(d["zcat"], dev, dt),
+        pf=PartFunTable(t_grid=t(d["pf"]["t_grid"]), q_grid=t(d["pf"]["q_grid"])),
+        surface_temperature=t(d["surface_temperature"]),
+        surface_reflectance=t(d.get("surface_reflectance", 0.0)),
+        nlte=None if d.get("nlte") is None else nlte_field_from_numpy(d["nlte"], dev, dt),
     )
 
 

@@ -32,7 +32,7 @@
 // each take 32 lines of the staged block, and each thread 4 adjacent
 // frequencies, so one line record (two 16-byte shared loads in float32)
 // serves 4 pairs.  Line blocks are 8-wide records (f0, inv_gd, z_imag,
-// cutoff | s_re, s_im, swc, pad), one contiguous 4 KB (float32) array per
+// cutoff | s_re, s_im, swc, res), one contiguous 4 KB (float32) array per
 // visit, copied into a ring of three shared buffers with cp.async while
 // the block before is summed.  The w(z) tier is chosen once per visit from
 // the block's |z|^2 lower bound (exactly the rule at voigt_kernel.py:439-
@@ -102,21 +102,24 @@ __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
 template <typename T>
 __device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
 
+// the line's centre is f0 + res: res is what rounding the centre to f0
+// left out (0 unless the caller carries it), subtracted after f - f0,
+// which is exact where f is near f0
 template <typename T>
 struct Line {
-  T f0, igd, zi, cut, sr, si, swc;
+  T f0, igd, zi, cut, sr, si, swc, res;
 };
 
 __device__ __forceinline__ Line<float> load_line(const float* p) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
-  return {a.x, a.y, a.z, a.w, b.x, b.y, b.z};
+  return {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
 __device__ __forceinline__ Line<double> load_line(const double* p) {
   const double2* q = reinterpret_cast<const double2*>(p);
   const double2 a = q[0], b = q[1], c = q[2], d = q[3];
-  return {a.x, a.y, b.x, b.y, c.x, c.y, d.x};
+  return {a.x, a.y, b.x, b.y, c.x, c.y, d.x, d.y};
 }
 
 // x <- 1 / x for a thread's kR denominators.  In float32 `1.0f / x` takes
@@ -286,7 +289,7 @@ __device__ __forceinline__ void block_sum(const T* __restrict__ sh,
     T df[kR], zr[kR], val[kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
-      df[r] = fv[r] - ln.f0;
+      df[r] = (fv[r] - ln.f0) - ln.res;
       zr[r] = ln.igd * df[r];
     }
     term(zr, ln, val);

@@ -10,9 +10,11 @@ Every path argument may carry leading batch axes (one path per row,
 padded with zero-length segments, which are exact no-ops); the result
 keeps them.  Everything is differentiable by autograd and torch.func.
 
-Not ported yet (each raises NotImplementedError): the predefined
-continua and ECS line-mixing bands (ROADMAP §A 5), the non-LTE band
-(§A 5) and the sun in the pencil beam (§A 7).
+A non-LTE band (scene.nlte, lbl.nlte.NlteField) adds its absorption to
+K and its emission excess S to the source, J = B + K^-1 S, in the scalar
+and the polarized radiance.  Not ported yet (each raises
+NotImplementedError): the predefined continua and ECS line-mixing bands
+(ROADMAP §A 5) and the sun in the pencil beam (§A 7).
 """
 
 import dataclasses
@@ -24,11 +26,15 @@ from ._cuda import move, resolve
 from .atm import Atmosphere1D
 from .lbl.catalog import LineCatalog
 from .lbl.partfun import PartFunTable
+from .lbl.nlte import nlte_absorption_source
 from .lbl.voigt import absorption, absorption_kernel
-from .lbl.zeeman import ZeemanCatalog, zeeman_propmat
+from .lbl.zeeman import ZeemanCatalog, zeeman_propmat_views
 from .ops.planck import inv_planck, planck
 from .options import PathBackground, RteOption, check_option
 from .rtepack import emission as E
+from .rtepack.propmat import inv as pm_inv
+from .rtepack.propmat import matvec
+from .rtepack.surface import flat_scalar_reflection
 
 
 def _emission_fn(rte_option: str):
@@ -81,10 +87,11 @@ def species_absorption(scene, fg, t, p, v, block: int = 256, backend: str = "xla
 
 @dataclasses.dataclass(frozen=True)
 class ClearskyScene:
-    """Scene state of a clear-sky emission simulation.  predef, ecs_bands
-    and nlte are the JAX package's fields for absorption the port cannot
-    evaluate yet: a scene that sets one raises NotImplementedError.
-    species_names names the rows of atm.vmr."""
+    """Scene state of a clear-sky emission simulation.  nlte is an optional
+    non-LTE band (lbl.nlte.NlteField).  predef and ecs_bands are the JAX
+    package's fields for absorption the port cannot evaluate yet: a scene
+    that sets one raises NotImplementedError.  species_names names the
+    rows of atm.vmr."""
 
     atm: Atmosphere1D
     cat: LineCatalog | None
@@ -117,10 +124,13 @@ def _background(scene, f_grid, k, J, r, background, emission):
     return cmb
 
 
-def _radiance(scene, f_grid, k, pts, r, background, rte_option):
-    """Emission along the paths from point quantities [..., NP, F]."""
+def _radiance(scene, f_grid, k, pts, r, background, rte_option, dJ=None):
+    """Emission along the paths from point quantities [..., NP, F]; dJ adds
+    to the Planck source (a non-LTE band's K^-1 S)."""
     emission = _emission_fn(rte_option)
     J = planck(f_grid, pts.t[..., None])
+    if dJ is not None:
+        J = J + dJ
     k, J, r = torch.movedim(k, -2, 0), torch.movedim(J, -2, 0), torch.movedim(r, -1, 0)
     I0 = _background(scene, f_grid, k, J, r, background, emission)
     return emission(k, J, r, I0.expand(k.shape[1:]))
@@ -140,14 +150,14 @@ def simulate_clearsky(scene: ClearskyScene, f_grid, path_alt, path_dr,
     point (lines in blocks of `block`).  With scene.atm.wind set and
     path_za (and optionally path_aa) given in degrees, each point's
     absorption is evaluated on its Doppler-shifted grid
-    f (1 - v_los / c).  The sun arguments raise NotImplementedError (not
-    ported yet, ROADMAP §A 7).
+    f (1 - v_los / c).  A non-LTE band (scene.nlte) adds its absorption at
+    each point (on the same grid) to K and its source S as K^-1 S to the
+    Planck source, with K the full absorption.  The sun arguments raise
+    NotImplementedError (not ported yet, ROADMAP §A 7).
     """
     if sun is not None or scattered_sun:
         raise NotImplementedError("the sun in the pencil beam is not ported yet "
                                   "(ROADMAP §A 7)")
-    if scene.nlte is not None:
-        raise NotImplementedError("the non-LTE band is not ported yet (ROADMAP §A 5)")
     _emission_fn(rte_option)
     check_option(PathBackground, background)
     dev, dt = resolve(device, dtype)
@@ -165,7 +175,14 @@ def simulate_clearsky(scene: ClearskyScene, f_grid, path_alt, path_dr,
         v_los = (pts.wind * khat).sum(-1)
         fg = f_grid * (1.0 - v_los / const.c)[..., None]
     k = species_absorption(scene, fg, pts.t, pts.p, pts.vmr, block=block)
-    return _radiance(scene, f_grid, k, pts, r, background, rte_option)
+    dJ = None
+    if scene.nlte is not None:
+        ru, rl = scene.nlte.at(path_alt)
+        a_n, s_n = nlte_absorption_source(fg, scene.nlte.cat, pts.t, pts.p, pts.vmr, ru, rl,
+                                          block=block)
+        k = k + a_n
+        dJ = s_n / torch.where(k.abs() > 1e-30, k, torch.ones_like(k))
+    return _radiance(scene, f_grid, k, pts, r, background, rte_option, dJ)
 
 
 def gas_absorption_levels(scene: ClearskyScene, f_grid, block: int = 256,
@@ -226,13 +243,18 @@ def simulate_clearsky_bt(scene, f_grid, path_alt, path_dr, background="space",
 class ZeemanScene:
     """Clear-sky scene with Zeeman-split polarized absorption (after
     ARTS's 2-zeeman example): the atmosphere carries the magnetic field
-    (Atmosphere1D.mag)."""
+    (Atmosphere1D.mag).  surface_reflectance is the scalar power
+    reflectance of background="surface_reflect"; nlte an optional
+    non-LTE band (lbl.nlte.NlteField) of unpolarized lines."""
 
     atm: Atmosphere1D
     zcat: ZeemanCatalog
     pf: PartFunTable
     surface_temperature: torch.Tensor = dataclasses.field(
         default_factory=lambda: torch.tensor(288.0))
+    surface_reflectance: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor(0.0))
+    nlte: object | None = None
 
 
 def simulate_clearsky_polarized(scene: ZeemanScene, f_grid, path_alt, path_za,
@@ -242,28 +264,52 @@ def simulate_clearsky_polarized(scene: ZeemanScene, f_grid, path_alt, path_za,
 
     path_alt, path_za (line-of-sight zenith angle per point, degrees, for
     the magnetic geometry) [np], path_dr [np-1] (path.geometric_path_1d);
-    background "space" (the cosmic background) or "surface" (a blackbody
-    at scene.surface_temperature); rte_option "constant", "lintau" or
-    "linprop" (the polarized recursions of rtepack.emission).  The
-    propagation matrices come from zeeman_propmat's dense route for every
-    path point at once, as the JAX function takes the XLA route.  Not
-    ported yet: "surface_reflect" and the non-LTE band (ROADMAP §A 4).
+    rte_option "constant", "lintau" or "linprop" (the polarized
+    recursions of rtepack.emission).  background "space" (the cosmic
+    background), "surface" (a blackbody at scene.surface_temperature) or
+    "surface_reflect": the downwelling Stokes vector is integrated along
+    the mirrored path (zenith angle 180 - za, which flips the magnetic
+    geometry, so its propagation matrices are formed anew for that
+    direction) from the cosmic background, then reflected with
+    flat_scalar_reflection (scene.surface_reflectance, V mirrored, the
+    rest emitted at scene.surface_temperature).  As in the JAX package,
+    the mirrored leg's K holds the Zeeman lines only, and its source the
+    full J.  A non-LTE band (scene.nlte) adds its absorption to component
+    0 of K and its source as J = B e1 + K^-1 S, with component 0 of K
+    floored at 1e-30 for the inversion only.  The propagation matrices
+    come from zeeman_propmat's dense route for every path point at once
+    (both directions from one set of shape sums), as the JAX function
+    takes the XLA route.
     """
-    if background not in ("space", "surface"):
-        raise ValueError(f"simulate_clearsky_polarized: background {background!r} "
-                         "is not supported (space, surface)")
+    bg = check_option(PathBackground, background)
     emission = _emission_fn_polarized(rte_option)
     dev, dt = resolve(device, dtype)
     as_t = lambda x: torch.as_tensor(x).to(device=dev, dtype=dt)
     scene = move(scene, dev, dt)
     f_grid, path_alt, path_za, r = (as_t(x) for x in (f_grid, path_alt, path_za, path_dr))
     pts = scene.atm.at(path_alt)
-    k = zeeman_propmat(f_grid, scene.zcat, scene.pf, pts.t, pts.p, pts.vmr, pts.mag,
-                       path_za, device=dev, dtype=dt)  # [np, F, 7]
-    J = torch.zeros(k.shape[:-1] + (4,), dtype=dt, device=dev)
-    J[..., 0] = planck(f_grid[None, :], pts.t[:, None])
-    t_bg = (scene.surface_temperature if background == "surface"
-            else as_t(const.cosmic_microwave_background_temperature))
-    I0 = torch.zeros(f_grid.shape + (4,), dtype=dt, device=dev)
-    I0[:, 0] = planck(f_grid, t_bg)
+    views = [path_za] + ([180.0 - path_za] if bg == "surface_reflect" else [])
+    k, *k_mirror = zeeman_propmat_views(f_grid, scene.zcat, scene.pf, pts.t, pts.p, pts.vmr,
+                                        pts.mag, views, device=dev, dtype=dt)  # [np, F, 7]
+    stokes = lambda x: torch.nn.functional.pad(x[..., None], (0, 3))  # x e1
+    J = stokes(planck(f_grid[None, :], pts.t[:, None]))
+    if scene.nlte is not None:
+        ru, rl = scene.nlte.at(path_alt)
+        a_n, s_n = nlte_absorption_source(f_grid, scene.nlte.cat, pts.t, pts.p, pts.vmr, ru,
+                                          rl)
+        k = torch.cat([k[..., :1] + a_n[..., None], k[..., 1:]], -1)
+        k_inv = torch.cat([torch.clamp(k[..., :1], min=1e-30), k[..., 1:]], -1)
+        J = J + matvec(pm_inv(k_inv), stokes(s_n))
+    cmb = stokes(planck(f_grid, as_t(const.cosmic_microwave_background_temperature))
+                 * torch.ones_like(f_grid))
+    if bg == "surface":
+        I0 = stokes(planck(f_grid, scene.surface_temperature) * torch.ones_like(f_grid))
+    elif bg == "surface_reflect":
+        # the mirrored leg runs from the far end of the path to the surface:
+        # its points in reverse order
+        I_down = emission(k_mirror[0].flip(0), J.flip(0), r.flip(0), cmb)
+        B = stokes(planck(f_grid, scene.surface_temperature) * torch.ones_like(f_grid))
+        I0 = flat_scalar_reflection(I_down, scene.surface_reflectance, B)
+    else:
+        I0 = cmb
     return emission(k, J, r, I0)

@@ -41,7 +41,7 @@ from ..ops.zeeman_mp_kernel import (
 )
 from .catalog import LineCatalog
 from .partfun import PartFunTable
-from .tmodel import IG0
+from .tmodel import ID0, IDV, IG0
 from .voigt import _shape_sum, _stimulated, line_strengths, lineshape_params
 
 POLS = ("pi", "sm", "sp")
@@ -168,18 +168,24 @@ def pol_matrices(theta, eta):
 
 
 def _pseudo_lines(zcat, p_i, T, s, f0s, inv_gd, ls, H):
-    """(f0, inv_gd, z_imag, s) [..., K] of polarization p_i's components:
-    the parent shifted by H split, with the Doppler width updated for the
-    shifted centre (as ARTS does) and the strength rescaled to it."""
+    """(f0 [K], offset, inv_gd, z_imag, s [..., K]) of polarization p_i's
+    components: the parent's unshifted centre and, apart from it, the
+    pressure shift plus H split, with the Doppler width updated for the
+    shifted centre (as ARTS does) and the strength rescaled to it.  The
+    dense route subtracts the offset after f - f0, which is exact near
+    the line in float32, and kernel 5's route carries what rounding
+    (f0 - anchor) + offset leaves out (_pol_args): f0 + offset would
+    round the centre to the float32 spacing of f0, ~16 kHz at 200 GHz,
+    several percent of an upper level's Doppler width."""
     cat = zcat.cat
     idx = zcat.idx[p_i]
-    f0_k = f0s[..., idx] + H[..., None] * zcat.split[p_i]
+    off_k = (ls[..., idx, ID0] + ls[..., idx, IDV]) + H[..., None] * zcat.split[p_i]
     gd_part = torch.sqrt(const.doppler_broadening_const_squared * T[..., None]
                          / cat.iso_mass[idx])
-    inv_gd_k = 1.0 / (gd_part * f0_k)
+    inv_gd_k = 1.0 / (gd_part * (f0s[..., idx] + H[..., None] * zcat.split[p_i]))
     z_imag_k = ls[..., idx, IG0] * inv_gd_k
     s_k = zcat.strength[p_i] * s[..., idx] * (inv_gd_k / inv_gd[..., idx])
-    return f0_k, inv_gd_k, z_imag_k, s_k
+    return cat.f0[idx], off_k, inv_gd_k, z_imag_k, s_k
 
 
 def _point_terms(f_grid, zcat, pf, T, P, vmr, mag, los_za_deg, los_aa_deg):
@@ -195,9 +201,18 @@ def _point_terms(f_grid, zcat, pf, T, P, vmr, mag, los_za_deg, los_aa_deg):
 
 def _pol_args(f_grid, zcat, npm, parts, Z):
     """voigt_sum_pol's positional arguments for [Z, L] pseudo-lines, in
-    pi/sm/sp order, shifted by a common anchor as JAX's route does."""
-    f0_a, igd_a, zi_a, s_a = (
-        torch.cat([p[i] for p in parts], -1).reshape(Z, -1) for i in range(4))
+    pi/sm/sp order, shifted by a common anchor as JAX's route does, and
+    the centres' rounding remainders: f0 - anchor is exact, and the
+    offset is added to it with the sum's rounding error carried apart
+    (TwoSum), for the kernel to subtract after f - f0."""
+    anchor = f_grid.mean()
+    base = torch.cat([(f0 - anchor).expand_as(off) for f0, off, *_ in parts], -1).reshape(Z, -1)
+    off = torch.cat([off for _, off, *_ in parts], -1).reshape(Z, -1)
+    f0_a = base + off
+    b_v = f0_a - base
+    res = (base - (f0_a - b_v)) + (off - b_v)
+    igd_a, zi_a, s_a = (
+        torch.cat([p[i] for p in parts], -1).reshape(Z, -1) for i in range(2, 5))
     polidx = torch.cat([torch.full_like(i, p_i) for p_i, i in enumerate(zcat.idx)])
     table = torch.stack([npm[pol] for pol in POLS], -2).reshape(-1, 3, 7).expand(Z, 3, 7)
     cut = zcat.cat.cutoff[torch.cat(zcat.idx)]
@@ -206,9 +221,8 @@ def _pol_args(f_grid, zcat, npm, parts, Z):
     wc = wofz(torch.complex(igd_a * cut_safe, zi_a))
     wcut = torch.where(has_cut, wc, torch.zeros_like(wc))
     cut_k = torch.where(has_cut, cut, 1e30).expand_as(f0_a)
-    anchor = f_grid.mean()
-    return (f_grid - anchor, f0_a - anchor, igd_a, zi_a, s_a.real, s_a.imag, cut_k,
-            wcut.real, wcut.imag, polidx, table)
+    return (f_grid - anchor, f0_a, igd_a, zi_a, s_a.real, s_a.imag, cut_k,
+            wcut.real, wcut.imag, polidx, table, res)
 
 
 def voigt_sum_pol_args(f_grid, zcat: ZeemanCatalog, pf: PartFunTable, T, P, vmr, mag,
@@ -226,7 +240,8 @@ def zeeman_propmat(f_grid, zcat: ZeemanCatalog, pf: PartFunTable, T, P, vmr,
     """Polarized propagation matrix [..., F, 7] at the points T, P [...],
     vmr [..., S], mag [..., 3] [T], seen along los_za_deg / los_aa_deg.
 
-    backend="xla": the per-polarization dense shape sums.
+    backend="xla": the per-polarization dense shape sums, for all points
+    at once (lines in blocks of 256).
     backend="pallas": all three polarizations' pseudo-lines, concatenated
     in pi/sm/sp order, through the polarized Voigt kernel (one launch for
     all points)."""
@@ -243,18 +258,45 @@ def zeeman_propmat(f_grid, zcat: ZeemanCatalog, pf: PartFunTable, T, P, vmr,
         return pm[0] if one else pm
     if backend != "xla":
         raise ValueError(f"zeeman_propmat: unknown backend {backend!r}")
+    return _polarize(npm, _dense_shapes(f_grid, zcat, parts, scl))
 
-    batch = T.shape
-    pm = torch.zeros(batch + f_grid.shape + (7,), dtype=dt, device=dev)
-    for p_i, pol in enumerate(POLS):
-        f0_k, inv_gd_k, z_imag_k, s_k = (x.reshape((-1,) + x.shape[len(batch):])
-                                         for x in parts[p_i])
+
+def _dense_shapes(f_grid, zcat, parts, scl):
+    """Each polarization's stimulated-emission-weighted shape sum [..., F]
+    by the dense route, for all points at once."""
+    shapes = []
+    for p_i in range(len(POLS)):
+        f0_k, off_k, inv_gd_k, z_imag_k, s_k = parts[p_i]
         cut = zcat.cat.cutoff[zcat.idx[p_i]]
-        shape = torch.stack([
-            _shape_sum(f_grid, s_k[b], f0_k[b], inv_gd_k[b], z_imag_k[b], cut).real
-            for b in range(s_k.shape[0])]).reshape(batch + f_grid.shape)
-        pm = pm + npm[pol][..., None, :] * (scl * shape)[..., None]
+        shapes.append(scl * _shape_sum(f_grid, s_k, f0_k, inv_gd_k, z_imag_k, cut,
+                                       shift=off_k).real)
+    return shapes
+
+
+def _polarize(npm, shapes):
+    """The propagation matrix [..., F, 7] of the polarization weights
+    {pol: [..., 7]} and the shape sums [..., F]."""
+    pm = torch.zeros(shapes[0].shape + (7,), dtype=shapes[0].dtype, device=shapes[0].device)
+    for pol, shape in zip(POLS, shapes):
+        pm = pm + npm[pol][..., None, :] * shape[..., None]
     return pm
+
+
+def zeeman_propmat_views(f_grid, zcat: ZeemanCatalog, pf: PartFunTable, T, P, vmr, mag,
+                         los_za_degs, los_aa_deg=0.0, device=None, dtype=None):
+    """zeeman_propmat(backend="xla") at the same points seen along each of
+    the lines of sight los_za_degs: a list of [..., F, 7].  The shape sums
+    do not depend on the direction (only the polarization weights do), so
+    they are computed once for all views; each matrix equals that of its
+    own zeeman_propmat call."""
+    dev, dt = resolve(device, dtype)
+    f_grid, zcat, pf, T, P, vmr, mag = move((f_grid, zcat, pf, T, P, vmr, mag), dev, dt)
+    as_t = lambda x: torch.as_tensor(x, dtype=dt, device=dev)
+    _, scl, parts = _point_terms(f_grid, zcat, pf, T, P, vmr, mag, as_t(los_za_degs[0]),
+                                 los_aa_deg)
+    shapes = _dense_shapes(f_grid, zcat, parts, scl)
+    return [_polarize(pol_matrices(*magnetic_angles(mag, as_t(za), los_aa_deg)[1:]), shapes)
+            for za in los_za_degs]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,6 +385,7 @@ def zeeman_mp_args(f_grid, zcat: PaddedZeemanCatalog, pf: PartFunTable, T, P, vm
     ls = lineshape_params(cat, T, P, vmr)
     s_l, f0_l, igd_l, _ = line_strengths(cat, pf, T, P, vmr, ls)  # [Z, L]
     g0_l = ls[..., IG0]
+    shift_l = ls[..., ID0] + ls[..., IDV]
     gd_c = torch.sqrt(const.doppler_broadening_const_squared * T[:, None]
                       / cat.iso_mass[None, :])
     anchor = f_grid.mean()
@@ -355,18 +398,25 @@ def zeeman_mp_args(f_grid, zcat: PaddedZeemanCatalog, pf: PartFunTable, T, P, vm
         pw_k = pw_tab[polidx_b]  # [CM_b, NP_b, 7]
         cut_b = cut_parent[parent_b]
         at = lambda x: x[:, parent_b][:, None, :]
-        f0_k = at(f0_l) + H * split_b[None]
-        igd_k = 1.0 / (at(gd_c) * f0_k)
+        # centres relative to the anchor: f0 - anchor is exact, and the
+        # offset (pressure shift + H split) is added to it for the pole
+        # moments and subtracted after f - (f0 - anchor) by the near
+        # correction (see _pseudo_lines); the Doppler width from the
+        # shifted centre
+        base_k = (cat.f0[parent_b] - anchor).expand_as(split_b[None])
+        off_k = at(shift_l) + H * split_b[None]
+        f0_k = base_k + off_k
+        igd_k = 1.0 / (at(gd_c) * (at(f0_l) + H * split_b[None]))
         zi_k = at(g0_l) * igd_k
         s_k = strength_b[None] * at(s_l) * (igd_k / at(igd_l))
         sr_k, si_k = s_k.real, s_k.imag
         wcr, wci = wofz_parts(igd_k * cut_b, zi_k, wn)
         swc_k = sr_k * wcr - si_k * wci
-        m = zeeman_pole_moments(f0_k - anchor, igd_k, zi_k, sr_k, si_k, swc_k, pw_k,
-                                MP_TERMS, mp_kappa)
+        m = zeeman_pole_moments(f0_k, igd_k, zi_k, sr_k, si_k, swc_k, pw_k, MP_TERMS,
+                                mp_kappa)
         moms.append(m)
-        near.append((m["c_re"], m["g0"], m["rnear"], cut_b, f0_k - anchor, igd_k, zi_k,
-                     sr_k, si_k, pw_k))
+        near.append((m["c_re"], m["g0"], m["rnear"], cut_b, base_k.expand_as(igd_k), igd_k,
+                     zi_k, sr_k, si_k, pw_k, off_k))
     catp = lambda key: torch.cat([m[key] for m in moms], 1)
     poles = (fa, catp("c_re"), catp("g0"), catp("R"), catp("rnear2"),
              cut_parent[torch.cat(zcat.parent)], catp("M_re"), catp("M_im"), catp("swcsum"))

@@ -60,10 +60,12 @@ TF, TL = 256, 128  # frequency tile and line block (fixed in csrc/voigt_sum.cu)
 _LAURENT_C = (1.0, 0.5, 0.75, 15.0 / 8.0, 105.0 / 16.0, 945.0 / 32.0,
               10395.0 / 64.0, 135135.0 / 128.0)
 
-LINE_COLS = ("f0", "inv_gd", "z_imag", "s_re", "s_im", "cutoff", "swc")
-# the kernel's line record: two 16-byte halves in float32
-REC_COLS = ("f0", "inv_gd", "z_imag", "cutoff", "s_re", "s_im", "swc", "pad")
-_F0, _IGD, _ZI, _CUT, _SR, _SI, _SWC = range(7)
+LINE_COLS = ("f0", "inv_gd", "z_imag", "s_re", "s_im", "cutoff", "swc", "res")
+# the kernel's line record: two 16-byte halves in float32.  The line's
+# centre is f0 + res: res is what rounding f0 left out (0 unless given),
+# subtracted after f - f0, which is exact where f is near f0
+REC_COLS = ("f0", "inv_gd", "z_imag", "cutoff", "s_re", "s_im", "swc", "res")
+_F0, _IGD, _ZI, _CUT, _SR, _SI, _SWC, _RES = range(8)
 EXT_COLS = ("f0_min", "f0_max", "igd_min", "zi_min")
 
 
@@ -324,15 +326,18 @@ def weideman_table(n, dtype, device):
 
 def _line_records(cols):
     """[Z, L, 8] kernel records (REC_COLS) from the LINE_COLS columns."""
-    f0, igd, zi, sr, si, cut, swc = cols
-    return torch.stack([f0, igd, zi, cut, sr, si, swc, torch.zeros_like(f0)], -1).contiguous()
+    f0, igd, zi, sr, si, cut, swc, res = cols
+    return torch.stack([f0, igd, zi, cut, sr, si, swc, res], -1).contiguous()
 
 
 def voigt_inputs(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
-                 wcut_im, polidx=None, table=None):
+                 wcut_im, polidx=None, table=None, res=None):
     """The kernel's inputs (f, lines, ext, blkidx, nvisit, wcoef) and the
     multipole far field for [Z, L] line columns on an [F] grid; lines are
-    [Z, nl*tl, 8] records (REC_COLS).
+    [Z, nl*tl, 8] records (REC_COLS).  res [Z, L] (0 when None): each
+    centre's remainder after rounding to f0, subtracted after f - f0 for
+    the pairs the kernel evaluates; the visit lists and the far field take
+    f0.
 
     With a polarization index per line, polidx [L] in 0..2, and per-level
     weight rows table [Z, 3, 7], the lines are grouped into
@@ -346,7 +351,8 @@ def voigt_inputs(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
     if nf * tf > F:
         f_grid = torch.cat([f_grid, f_grid[-1:].expand(nf * tf - F)])
     swc = s_re * wcut_re - s_im * wcut_im
-    cols = (f0, inv_gd, z_imag, s_re, s_im, cutoff, swc)
+    cols = (f0, inv_gd, z_imag, s_re, s_im, cutoff, swc,
+            torch.zeros_like(f0) if res is None else res)
     blkpol = pw = None
     if polidx is None:
         nl = -(-L // tl)
@@ -356,7 +362,7 @@ def voigt_inputs(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
         nl = blkpol.shape[0]
         table = table.to(f_grid.dtype).contiguous()
         pw = table[:, blkpol.long().repeat_interleave(tl)]  # [Z, nl*tl, 7]
-    visit, mp, ext = _classify_visits(f_grid, *cols, nf, tf, nl, tl, pw)
+    visit, mp, ext = _classify_visits(f_grid, *cols[:_RES], nf, tf, nl, tl, pw)
     blkidx, nvisit = _visit_lists(visit)
     wcoef = weideman_table(weideman_order(f_grid.dtype), f_grid.dtype, f_grid.device)
     args = (f_grid.contiguous(), _line_records(cols), ext, blkidx, nvisit, wcoef)
@@ -383,19 +389,22 @@ def voigt_sum(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im,
 
 
 def voigt_sum_pol(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
-                  wcut_im, polidx, table):
+                  wcut_im, polidx, table, res=None):
     """The polarized contraction: out[c] = sum_l tab[pol_l, c]
     Re s_l (w(z_l(f)) - wcut_l) inside the window, c < 7.
 
     Arguments as voigt_sum, plus polidx [L] (0, 1, 2 = pi, sigma-,
-    sigma+) and table [3, 7] (or [Z, 3, 7] with [Z, L] line columns).
+    sigma+), table [3, 7] (or [Z, 3, 7] with [Z, L] line columns) and the
+    centres' rounding remainders res (voigt_inputs).
     Returns [7, F] or [Z, 7, F].
     """
     one = f0.dim() == 1
     cols = [c[None] if one else c for c in
             (f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im)]
+    if res is not None and one:
+        res = res[None]
     args, mp = voigt_inputs(f_grid, *cols, polidx=polidx,
-                            table=table[None] if one else table)
+                            table=table[None] if one else table, res=res)
     out = (voigt_kernel_pol(*args) + mp.transpose(1, 2))[..., : f_grid.shape[0]]
     return out[0] if one else out
 
@@ -521,7 +530,7 @@ def _pair_chunks(f, lines, ext, blkidx, nvisit):
                                            torch.where(bound2 > 2.0 * mid_r2, 2, 3)))
             tier = torch.where(slot < nvisit[z, ts, None], tier, 4)
             blk = lines[z].view(nl, tl, -1)[jb].movedim(-1, 0)[..., None]  # [8, nt, S, tl, 1]
-            df = tz[:, None, None, :] - blk[_F0]
+            df = (tz[:, None, None, :] - blk[_F0]) - blk[_RES]
             yield z, ts, tier, jb, blk, df
 
 

@@ -274,13 +274,16 @@ def near_points(f_grid, c_re, g0, rnear, cutoff, noff):
 
 
 def near_correction(f_grid, out, c_re, g0, rnear, cutoff, f0_k, igd_k, zi_k,
-                    sr_k, si_k, pw_k, noff=6, wofz_n=16):
+                    sr_k, si_k, pw_k, off_k=None, noff=6, wofz_n=16):
     """Exact per-component values at the grid points inside each pole's
     near radius, added onto the expansion field.
 
     out [Z, 7, F] from zeeman_mp_eval; c_re, g0, rnear [Z, NP]; cutoff
     [NP]; component grids f0_k, igd_k, zi_k, sr_k, si_k [Z, CM, NP];
-    pw_k [CM, NP, C].  noff candidate points per pole must cover
+    pw_k [CM, NP, C].  With off_k [Z, CM, NP] the centres are f0_k + off_k
+    and the offset is subtracted after f - f0_k (exact in float32 where f
+    and f0_k are close, while f0_k + off_k would round to the float32
+    spacing of f0_k).  noff candidate points per pole must cover
     ceil(2 max rnear / spacing) + 2 (tune_zeeman_profile).  Only the
     candidates inside the near radius (near_points) are evaluated: JAX
     evaluates the whole static [Z, noff, CM, NP] grid and masks it.
@@ -291,7 +294,10 @@ def near_correction(f_grid, out, c_re, g0, rnear, cutoff, f0_k, igd_k, zi_k,
 
     z, p, o = pmask.nonzero(as_tuple=True)  # the near (level, pole, offset)
     comp = lambda x: x[z, :, p]  # [N, CM]
-    zr = comp(igd_k) * (fo[z, p, o][:, None] - comp(f0_k))
+    df = fo[z, p, o][:, None] - comp(f0_k)
+    if off_k is not None:
+        df = df - comp(off_k)
+    zr = comp(igd_k) * df
     wr, wi = wofz_parts(zr, comp(zi_k).expand_as(zr), wofz_n)
     val = comp(sr_k) * wr - comp(si_k) * wi
     with _cuda.full_f32_matmul():

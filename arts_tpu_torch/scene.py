@@ -4,7 +4,9 @@ synth_par_rows and build_scene are copies of bench.py's (without its
 real-catalog branch): 2048 HITRAN-shaped H2O + O2 lines read through the
 .par reader, 4096 frequencies from 160 to 260 GHz, a 60-level US-76
 atmosphere, one Henyey-Greenstein cloud between 4 and 9 km, and a 288 K
-surface.  build_zeeman_inputs is bench.py's Zeeman stage on that scene.
+surface.  build_zeeman_inputs is bench.py's Zeeman stage on that scene, and
+build_zeeman_nlte_scene the polarized radiance scene around it (IGRF-13
+field, reflecting surface, a non-LTE band).
 build_cloud_retrieval is an OEM retrieval of cloud extinction, single
 scattering albedo and surface temperature in a cloudy microwave window.
 build_stage23_case gives the DISORT stage 2+3 kernel random problems on
@@ -21,18 +23,21 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import constants as const
 from ._cuda import move, resolve
 from .atm import Atmosphere1D
 from .atm.field import hydrostatic_pressure
+from .atm.igrf import magnetic_profile
 from .atm.standard import standard_atmosphere
 from .disort import DisortInput
 from .disort import fused_kernel as FK
 from .disort.quadrature import double_gauss, lambda_tables
 from .disort.solver import solve_terms
-from .fwd import ClearskyScene, simulate_clearsky
+from .fwd import ClearskyScene, ZeemanScene, simulate_clearsky
 from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky
 from .io.hitran import read_par, zeeman_catalog_from_par
 from .lbl.catalog import build_catalog
+from .lbl.nlte import NlteField, boltzmann_ratios, nlte_fit_profile
 from .lbl.partfun import rigid_rotor_table
 from .lbl.tmodel import Law
 from .lbl.zeeman import pad_zeeman_catalog, tune_zeeman_profile
@@ -119,6 +124,69 @@ def build_zeeman_inputs(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=
         vmr=pts.vmr, mag=torch.tensor([0.0, 3e-5, 3e-5], dtype=dt, device=dev),
         los_za_deg=180.0, tune=tune_zeeman_profile(f_grid, pzcat),
     )
+
+
+# the non-LTE band of build_zeeman_nlte_scene: the CO-like line of
+# examples/8_nlte_radiance.py (J = 1 - 0: its A, g, mass and broadening) at
+# NLTE_LINES centres spread over the grid, all between one pair of levels,
+# in a species of its own at NLTE_VMR
+NLTE_LINES = 16
+NLTE_VMR = 1e-6
+NLTE_G = (1.0, 3.0)
+SURFACE_REFLECTANCE = 0.1
+
+
+def build_zeeman_nlte_scene(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=None):
+    """The polarized scene with a reflecting surface and a non-LTE band:
+    the catalog, grid and levels of build_zeeman_inputs (2048 .par lines,
+    4096 frequencies from 160 to 260 GHz, 60 levels to 80 km), the IGRF-13
+    field of 2020 at 60 N, 0 E (examples/2_zeeman.py's latitude), a 288 K
+    surface of reflectance 0.1, and a 16-line CO-like two-level band whose
+    population ratios come from nlte_fit_profile against the band's own
+    radiation field with examples/8_nlte_radiance.py's collision rates
+    (3e-7 /s scaled with pressure, the upward rate in detailed balance),
+    starting from the Boltzmann ratios.  Everything is computed in
+    float64 on `device` and cast to `dtype` at the end, so that every
+    precision gets the same scene.
+
+    Returns a dict: scene (ZeemanScene), f_grid, path (a down-looking
+    path.PathGeometry from the top of the scene, one point per level),
+    fit (nlte_fit_profile's keyword arguments, float64) and fit_iterations."""
+    dev, dt = resolve(device, dtype)
+    f64 = dict(device=dev, dtype=torch.float64)
+    base, f_grid = build_scene(n_lev, n_freq, n_lines, **f64)
+    zcat = zeeman_catalog_from_par(synth_par_rows(n_lines), ["H2O", "O2"], cutoff=25e9, **f64)
+    z, t, p = base.atm.z, base.atm.t, base.atm.p
+    vmr = torch.cat([base.atm.vmr, torch.full_like(base.atm.vmr[:1], NLTE_VMR)])
+    atm = Atmosphere1D(z=z, t=t, p=p, vmr=vmr,
+                       mag=magnetic_profile(z, lat_deg=60.0, lon_deg=0.0, year=2020.0, **f64))
+    fmin, fmax = float(f_grid[0]), float(f_grid[-1])
+    f0 = fmin + (np.arange(NLTE_LINES) + 0.5) * (fmax - fmin) / NLTE_LINES
+    cat = build_catalog([dict(f0=f, a=7.2e-8, e0=0.0, gu=NLTE_G[1], gl=NLTE_G[0],
+                              iso_mass=28.0, iso_ratio=1.0, spec_idx=vmr.shape[0] - 1,
+                              iso_idx=0, band_idx=0, t0=296.0, cutoff=np.inf,
+                              ls={"bath": {"G0": (Law.T1, [2.4e4, 0.75])}}) for f in f0],
+                        **f64)
+    g = torch.tensor(NLTE_G, **f64)
+    E = torch.tensor([0.0, const.h * float(f0.mean())], **f64)
+    Q = (g * torch.exp(-E / (const.k * t[:, None]))).sum(-1)
+    r_lte = boltzmann_ratios(t, g, E, Q)
+    Cul = 3e-7 * (p / p[0])[:, None].expand(-1, NLTE_LINES)
+    Clu = Cul * (g[1] / g[0]) * torch.exp(-const.h * cat.f0 / (const.k * t[:, None]))
+    up = torch.ones(NLTE_LINES, dtype=torch.int64, device=dev)
+    fit = dict(f_grid=f_grid, z_levels=z, t_prof=t, p_prof=p, vmr_prof=vmr.T, cat=cat,
+               n_levels=2, up_idx=up, lo_idx=up - 1, Cul=Cul, Clu=Clu, r_sum=r_lte.sum(-1),
+               r_init=r_lte, surf_t=torch.tensor(288.0, **f64),
+               surf_eps=1.0 - SURFACE_REFLECTANCE, convergence_limit=1e-8)
+    r, n_iter, _ = nlte_fit_profile(**fit, **f64)
+    scene = ZeemanScene(atm=atm, zcat=zcat, pf=base.pf,
+                        surface_temperature=torch.tensor(288.0, **f64),
+                        surface_reflectance=torch.tensor(SURFACE_REFLECTANCE, **f64),
+                        nlte=NlteField(z=z, r=r, cat=cat, up_idx=up, lo_idx=up - 1))
+    top = float(z[-1])
+    path = geometric_path_1d(top, 180.0, 0.0, top, top / (n_lev - 1))
+    return dict(scene=move(scene, dev, dt), f_grid=f_grid.to(dt), path=path, fit=fit,
+                fit_iterations=n_iter)
 
 
 def build_stage23_case(nquad, B, L, seed, device=None, dtype=None):

@@ -50,10 +50,29 @@
    (counters set to 0 just before, read just after), zeeman points/s,
    and the guard against the dense zeeman_propmat route at the top and
    bottom levels (max |diff| / max |ref| <= 1e-4);
+7b. holds float32 against float64 on identical inputs (the float32 Zeeman
+   inputs cast to float64) at the top 5 levels, each level against its own
+   largest value: kernel 5's route (zeeman_propmat(backend="pallas"), the
+   kernel fed each centre as f0 - anchor plus the remainder of adding its
+   offset) and the float32 dense route at 1e-5, the profile route (kernel
+   6 and the near correction) at 1e-4, all against the float64 dense route;
 8. runs simulate_clearsky_polarized on the 2_zeeman example's scene
    (one O2 118.75 GHz line, 401 frequencies, 51 levels to 100 km, an
    up-looking path in 2 km steps, a constant [0, 3e-5, 3e-5] T field) in
    float64 on the card and on the CPU: equal to 1e-10 of scale, |V| > 0;
+8b. runs simulate_clearsky_polarized(background="surface_reflect",
+   rte_option="linprop") at full width on scene.build_zeeman_nlte_scene
+   (the bench Zeeman catalog and grid, 60 levels, the IGRF-13 field at
+   60 N, a surface of reflectance 0.1, a 16-line non-LTE band whose
+   populations nlte_fit_profile fits on the card in float64, a
+   down-looking path) in float32: the median of 3 calls, the 3 runs
+   bit-identical, a profiled call (device operations and busy share);
+   float32 against float64 on 256 frequencies (1e-4 of I's scale, each
+   Stokes component; V also against its own scale), float64 on the card
+   against the CPU (1e-10 of scale), nlte_fit_profile in float64 on the
+   card against the CPU (the same iterations, ratios within 1e-8) with
+   both times, and igrf13 and add_faraday on the card against the CPU
+   (1e-12);
 9. (after phase 4, on the benchmark scene) holds the Jacobi eigh kernel
    against its plain version on the differentiable route's Hsym batch
    (241,664 problems of 8 x 8) in float64 and float32 and on random
@@ -182,7 +201,10 @@ def bound(flops, nbytes_):
 
 def log_profile(what, fn, top):
     """Profile one call of fn: log its wall time, the device busy share and
-    operation count, and the top device operations by time."""
+    operation count, and the top device operations by time; returns the
+    first three.  Only the device's own rows count: the rows of the
+    operators that launched them carry the same device time again."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -191,13 +213,16 @@ def log_profile(what, fn, top):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages() if e.self_device_time_total > 0),
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows)
+    n_ops = sum(r[1] for r in rows)
     log(f"profiled {what}: wall {wall_ms:.2f} ms (profiler on), device busy "
-        f"{busy:.2f} ms ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} device ops")
+        f"{busy:.2f} ms ({busy / wall_ms:.1%}), {n_ops} device ops")
     for ms, count, key in rows[:top]:
         log(f"  {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+    return wall_ms, busy, n_ops
 
 
 def ge_flops(n, k):
@@ -942,7 +967,7 @@ def phase_zeeman_pol(zin, dev, _cuda, levels=(0, 29, 59)):
         mag = torch.tensor(OBLIQUE[0], dtype=dt, device=dev)
         args, _ = voigt_sum_pol_args(d["f_grid"], d["zcat"], d["pf"], d["T"][sel],
                                      d["P"][sel], d["vmr"][sel], mag, *OBLIQUE[1:])
-        kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10])
+        kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10], res=args[11])
         got = V.voigt_kernel_pol(*kin)
         want = V.voigt_kernel_pol_plain(*kin)
         torch.cuda.synchronize()
@@ -983,7 +1008,7 @@ def phase_zeeman_pol(zin, dev, _cuda, levels=(0, 29, 59)):
 
     args, _ = voigt_sum_pol_args(d["f_grid"], d["zcat"], d["pf"], d["T"], d["P"], d["vmr"],
                                  d["mag"], d["los_za_deg"])
-    kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10])
+    kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10], res=args[11])
     require(torch.equal(V.voigt_kernel_pol(*kin), V.voigt_kernel_pol(*kin)),
             "voigt_sum_pol float32: two runs differ")
     ms = cuda_ms(lambda: V.voigt_kernel_pol(*kin), 10)
@@ -1221,6 +1246,159 @@ def phase_clearsky_polarized(dev):
         f"(limit 1e-10); max |V|/I {vmax / float(got[:, 0].max()):.3e}")
     require(r <= 1e-10 and rv <= 1e-10, f"card vs CPU {r:.3e}, V {rv:.3e} > 1e-10")
     require(vmax > 0, "no circular polarization")
+
+
+# the top levels of the bench Zeeman inputs, where a Doppler width is a few
+# float32 spacings of a line centre
+TOP_LEVELS = 5
+
+
+def phase_zeeman_centres(zin, dev):
+    """Float32 against float64 on identical inputs (the float32 inputs cast
+    to float64) at the top TOP_LEVELS levels of the bench Zeeman inputs,
+    each level against its own largest value: kernel 5's route
+    (zeeman_propmat(backend="pallas")) and the float32 dense route at
+    1e-5, the profile route (kernel 6 and the near correction) at 1e-4,
+    all against the float64 dense route.  Forming f0 + shift + H split in
+    float32 before f - f0 moved the profile route by 1.1e-2 at these
+    levels on the CPU before the centres were formed exactly."""
+    from arts_tpu_torch._cuda import move
+    from arts_tpu_torch.lbl.zeeman import zeeman_propmat, zeeman_propmat_profile
+
+    d = zin[torch.float32]
+    top = slice(0, TOP_LEVELS)
+    ins = {k: d[k] for k in ("f_grid", "zcat", "pzcat", "pf", "mag")}
+    ins.update({k: d[k][top] for k in ("T", "P", "vmr")})
+    ins64 = {k: move(v, dev, torch.float64) for k, v in ins.items()}
+
+    def route(x, dt, name):
+        args = (x["f_grid"], x["pzcat" if name == "profile" else "zcat"], x["pf"], x["T"],
+                x["P"], x["vmr"], x["mag"], d["los_za_deg"])
+        kw = dict(device=dev, dtype=dt)
+        if name == "profile":
+            return zeeman_propmat_profile(*args, **d["tune"], **kw)
+        return zeeman_propmat(*args, backend="pallas" if name == "kernel" else "xla", **kw)
+
+    t0 = time.perf_counter()
+    ref = route(ins64, torch.float64, "dense")
+    torch.cuda.synchronize()
+    log(f"Zeeman float64 dense route, top {TOP_LEVELS} levels: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, lim in (("kernel", 1e-5), ("profile", 1e-4), ("dense", 1e-5)):
+        got = route(ins, torch.float32, name)
+        gaps = ((got.double() - ref).abs().amax((-2, -1))
+                / ref.abs().amax((-2, -1))).tolist()
+        log(f"Zeeman {name} route float32 vs float64 dense, top {TOP_LEVELS} levels (share "
+            f"of each level's largest value): {', '.join(f'{g:.3e}' for g in gaps)} "
+            f"(limit {lim})")
+        require(max(gaps) <= lim, f"Zeeman {name} route float32: {max(gaps):.3e} > {lim}")
+
+
+# the float64 comparisons of phase_zeeman_nlte: every 16th frequency (256)
+# on the card, every NLTE_CPU_EVERY-th of those (8) against the CPU, whose
+# dense route takes ~3 s per frequency at float64 (755 s for all 256)
+NLTE_SUBSET = 16
+NLTE_CPU_EVERY = 32
+
+
+def phase_zeeman_nlte(dev, reps=3):
+    """simulate_clearsky_polarized(background="surface_reflect",
+    rte_option="linprop") on scene.build_zeeman_nlte_scene at full width in
+    float32: its median time, two runs bit-identical, a profiled call;
+    float32 against float64 on a frequency subset, the float64 card
+    against the CPU, the non-LTE population fit on the card against the
+    CPU, and igrf13 and add_faraday on the card against the CPU."""
+    from arts_tpu_torch import simulate_clearsky_polarized
+    from arts_tpu_torch._cuda import move
+    from arts_tpu_torch.atm.igrf import igrf13
+    from arts_tpu_torch.lbl.faraday import add_faraday
+    from arts_tpu_torch.lbl.nlte import nlte_fit_profile
+    from arts_tpu_torch.scene import build_zeeman_nlte_scene
+
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    b = build_zeeman_nlte_scene(device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    scene, fg, path = b["scene"], b["f_grid"], b["path"]
+    n_comp = sum(int(i.numel()) for i in scene.zcat.idx)
+    log(f"build_zeeman_nlte_scene: {time.perf_counter() - t0:.1f} s (non-LTE fit, float64 on "
+        f"the card: {b['fit_iterations']} iterations); {len(path.alt)} path points x "
+        f"{fg.numel()} freqs x {scene.zcat.cat.n_lines} lines ({n_comp} components) + "
+        f"{scene.nlte.cat.n_lines} non-LTE lines")
+
+    def run(sc, f, d, dt):
+        return simulate_clearsky_polarized(sc, f, path.alt, path.za, path.dr,
+                                           background="surface_reflect", rte_option="linprop",
+                                           device=d, dtype=dt)
+
+    outs, times = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        outs.append(run(scene, fg, dev, f32))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = outs[0]
+    require(tuple(out.shape) == (fg.numel(), 4), f"Stokes shape {tuple(out.shape)}")
+    require(bool(torch.isfinite(out).all()), "non-finite Stokes vector")
+    require(all(torch.equal(o, out) for o in outs), "simulate_clearsky_polarized float32: "
+            "two runs differ")
+    log(f"simulate_clearsky_polarized(surface_reflect, linprop, non-LTE band) float32: "
+        f"median {np.median(times):.2f} ms of {reps} calls {[round(t, 3) for t in times]}, "
+        f"the {reps} runs bit-identical, on {card_line()}")
+    log_profile("simulate_clearsky_polarized float32 call", lambda: run(scene, fg, dev, f32), 8)
+
+    sub = slice(None, None, NLTE_SUBSET)
+    scene64 = move(scene, dev, f64)
+    fs = fg[sub].double()
+    ref = run(scene64, fs, dev, f64)
+    scale = float(ref[:, 0].abs().max())
+    comps = [float((out[sub, c].double() - ref[:, c]).abs().max()) / scale for c in range(4)]
+    v_own = rel(out[sub, 3], ref[:, 3])
+    log(f"simulate_clearsky_polarized float32 vs float64 on {fs.numel()} frequencies: "
+        f"I, Q, U, V {', '.join(f'{c:.3e}' for c in comps)} of I's scale (limit 1e-4); V "
+        f"{v_own:.3e} of its own scale; max |V|/I {float(ref[:, 3].abs().max()) / scale:.3e}")
+    require(max(comps) <= 1e-4, f"float32 vs float64 {max(comps):.3e} > 1e-4 of I's scale")
+
+    cs = slice(None, None, NLTE_CPU_EVERY)
+    t0 = time.perf_counter()
+    cpu = run(move(scene64, "cpu", f64), fs[cs].cpu(), "cpu", f64)
+    t_cpu = time.perf_counter() - t0
+    r = rel(ref[cs].cpu(), cpu)
+    rv = rel(ref[cs, 3].cpu(), cpu[:, 3])
+    log(f"simulate_clearsky_polarized float64 card vs CPU on {cpu.shape[0]} frequencies: "
+        f"{r:.3e} of scale, V {rv:.3e} of its own (limit 1e-10); CPU {t_cpu:.1f} s")
+    require(r <= 1e-10, f"float64 card vs CPU {r:.3e} > 1e-10")
+
+    fit = b["fit"]
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        args = {k: move(v, d, f64) for k, v in fit.items()}
+        t0 = time.perf_counter()
+        runs.append(nlte_fit_profile(**args, device=d, dtype=f64))
+        torch.cuda.synchronize()
+        runs[-1] += (time.perf_counter() - t0,)
+    (rg, ng, mg, tg), (rc, nc, mc, tc) = runs
+    dr = float((rg.cpu() - rc).abs().max())
+    log(f"nlte_fit_profile float64 ({rg.shape[0]} levels, {fit['cat'].n_lines} lines, "
+        f"{fit['f_grid'].numel()} freqs): card {ng} iterations in {tg:.2f} s, CPU {nc} in "
+        f"{tc:.2f} s; last changes {mg:.2e} / {mc:.2e}; ratios differ by {dr:.2e} (limit 1e-8)")
+    require(ng == nc, f"nlte_fit_profile iterations: card {ng}, CPU {nc}")
+    require(dr <= 1e-8, f"nlte_fit_profile ratios differ by {dr:.2e} > 1e-8")
+
+    lat, lon = np.meshgrid(np.linspace(-89.5, 89.5, 37), np.linspace(-180.0, 175.0, 72))
+    alt = np.linspace(0.0, 8e5, lat.size).reshape(lat.shape)
+    Bg, Bc = (igrf13(lat, lon, alt, year=2017.5, device=d, dtype=f64) for d in (dev, "cpu"))
+    rb = rel(Bg.cpu(), Bc)
+    mag = scene64.atm.mag.T[:, None, :]  # [NZ, 1, 3]
+    pm = torch.randn(mag.shape[0], 64, 7, dtype=f64, generator=torch.Generator().manual_seed(3))
+    fa = torch.linspace(1e9, 4e9, 64, dtype=f64)
+    ne = torch.logspace(9, 12, mag.shape[0], dtype=f64)[:, None]
+    Pg, Pc = (add_faraday(pm.to(d), fa.to(d), ne.to(d), mag.to(d), 150.0, 20.0)
+              for d in (dev, "cpu"))
+    rf = rel(Pg.cpu() - pm, Pc - pm)
+    log(f"igrf13 ({lat.size} points, 2017.5) card vs CPU {rb:.3e} of scale; add_faraday "
+        f"(U component) {rf:.3e} (limit 1e-12)")
+    require(rb <= 1e-12 and rf <= 1e-12, f"igrf13 {rb:.3e} / add_faraday {rf:.3e} > 1e-12")
 
 
 def sync_ms(fn, reps=3):
@@ -1545,8 +1723,11 @@ def main():
     mp = phase_zeeman_mp(zin, dev)
     mp["launches"] = phase_zeeman_stage(zin, dev, _cuda)["zeeman_mp"]
     kernels.append(mp)
+    phase_zeeman_centres(zin, dev)
     phase_clearsky_polarized(dev)
     del zin
+    torch.cuda.empty_cache()
+    phase_zeeman_nlte(dev)
     torch.cuda.empty_cache()
     kernels[0]["launches_on"] = {
         "allsky_main_path": kernels[0]["launches"],

@@ -27,6 +27,17 @@ CPU64 = dict(device="cpu", dtype=torch.float64)
 N_LEV, N_FREQ, N_LINES, NQUAD = 10, 256, 64, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _leaves(obj):
     return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)
             if getattr(obj, f.name) is not None}

@@ -33,8 +33,8 @@ from arts_tpu_torch.ops.wofz import wofz
 from arts_tpu_torch.retrieval import oem
 from arts_tpu_torch.rtepack import emission as E
 from arts_tpu_torch.scene import build_clearsky_retrieval, build_scene
-from tests.test_clearsky import make_scene
-from tests.test_oem import vmr_targets
+from test_clearsky import make_scene
+from test_oem import vmr_targets
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)

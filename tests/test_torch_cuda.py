@@ -76,7 +76,7 @@ def test_voigt_pol_kernel_matches_plain(dev, dtype, rtol, atol):
     mag = torch.tensor([10e-6, -20e-6, 40e-6], dtype=dtype, device=dev)
     args, _ = voigt_sum_pol_args(d["f_grid"], d["zcat"], d["pf"], d["T"], d["P"], d["vmr"],
                                  mag, 65.0, 30.0)
-    kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10])
+    kin, _ = V.voigt_inputs(*args[:9], polidx=args[9], table=args[10], res=args[11])
     got = V.voigt_kernel_pol(*kin).double()
     want = V.voigt_kernel_pol_plain(*kin).double()
     scale = want.abs().max()

@@ -18,6 +18,17 @@ from test_disort import band_planck, golden_case
 CPU64 = dict(device="cpu", dtype=torch.float64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(F=3, L=5, nleg=8, seed=0):
     """F thermal problems as numpy: scattering layers with delta-M, one
     optically thin layer (the constant-source switch, dtau < 1e-5), one

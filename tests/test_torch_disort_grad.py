@@ -20,6 +20,17 @@ from test_torch_disort import _inputs, _port_input
 CPU64 = dict(device="cpu", dtype=torch.float64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("omega2, tol", [(0.95, 1e-9), (1.0, 1e-6)])
 def test_matches_jax_lapack_route_and_fused_route(omega2, tol):
     """Thermal problems with delta-M and an optically thin layer: fluxes

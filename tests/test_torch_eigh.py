@@ -14,6 +14,17 @@ from arts_tpu_torch.ops import eigh_jacobi as E
 from arts_tpu_torch.ops.eigh_jacobi import eigh_jacobi
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sym_batch(rng, b, n, dtype):
     X = rng.normal(size=(b, n, n))
     return (X + X.transpose(0, 2, 1)).astype(dtype)

@@ -3,7 +3,9 @@ at float64: catalog ingestion, w(z), the Voigt kernel's plain version and
 the absorption routes, on identical inputs made with numpy."""
 
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,20 @@ from arts_tpu_torch.scene import synth_par_rows
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
+# jax.jit with LLVM's optimizations off: compiles the interpret-mode
+# kernel in about half the time of its own jit
+ref_jit = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _lines(reader, n_lines=64):
@@ -105,8 +121,8 @@ def test_voigt_sum_plain_matches_jax_interpret(case):
     the same tiers in float64; only the summation order differs."""
     args = case()
     got = V.voigt_sum(*map(T, args), plain=True).numpy()
-    want = np.asarray(j_voigt_sum(*map(jnp.asarray, args), tf=256, tl=128,
-                                  interpret=True))
+    want = np.asarray(ref_jit(lambda *a: j_voigt_sum(*a, tf=256, tl=128, interpret=True))(
+        *map(jnp.asarray, args)))
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9 * scale)
 

@@ -35,8 +35,8 @@ from arts_tpu_torch.retrieval import RetrievalTarget, StateMapping
 from arts_tpu_torch.scene import build_clearsky_measurement
 from arts_tpu_torch.sensor import measurement as M
 from arts_tpu_torch.sensor import observers as O
-from tests.test_clearsky import make_scene
-from tests.test_torch_clearsky import ref_jit, scene_numpy
+from test_clearsky import make_scene
+from test_torch_clearsky import ref_jit, scene_numpy
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)

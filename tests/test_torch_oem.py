@@ -6,6 +6,7 @@ and the Jacobian and one Gauss-Newton step of the slice as a whole
 (simulate_allsky(fast_linalg=False) with the Voigt-kernel gas absorption)."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,20 @@ from arts_tpu_torch.scene import build_cloud_retrieval
 from test_clearsky import make_scene
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
+# jax.jit with LLVM's optimizations off: the slice's Jacobian compiles in a
+# fraction of the time of the default jit
+ref_jit = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,7 +244,7 @@ def test_slice_jacobian_and_gauss_newton_step_match_jax(case, jax_case):
         y = jnp.concatenate([out.flux_up[:, 0], out.u0[:, 0, -1]])
         return y, y
 
-    jac = jax.jit(jax.jacfwd(forward, has_aux=True))
+    jac = ref_jit(jax.jacfwd(forward, has_aux=True))
     x_a = case.x_a.numpy()
     _, y_true = jac(jnp.asarray(case.x_true.numpy()))
     y_obs = case.y_obs.numpy()

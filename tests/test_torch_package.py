@@ -19,6 +19,17 @@ SOURCES = sorted(p for p in PKG.rglob("*.py")
 FORBIDDEN = ("jax", "jaxlib", "arts_tpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _imported_modules(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -81,9 +92,27 @@ def _entry_points():
         window_scene,
     )
 
+    from arts_tpu_torch.atm.igrf import dipole_field, igrf13, magnetic_profile
+    from arts_tpu_torch.convert import nlte_field_from_numpy, zeeman_scene_from_numpy
+    from arts_tpu_torch.lbl.nlte import nlte_fit_profile
+    from arts_tpu_torch.lbl.zeeman import zeeman_propmat_views
+    from arts_tpu_torch.scene import build_zeeman_nlte_scene
+
     lines = lambda: read_par(synth_par_rows(4), ["H2O", "O2"])
     zrows = lambda: synth_par_rows(4)
     return {
+        "igrf13": lambda o: igrf13(60.0, 0.0, 0.0),
+        "dipole_field": lambda o: dipole_field(60.0, 0.0, 0.0),
+        "magnetic_profile": lambda o: magnetic_profile(np.linspace(0.0, 1e4, 3)),
+        "nlte_fit_profile": lambda o: nlte_fit_profile(
+            o[1], o[0].atm.z, o[0].atm.t, o[0].atm.p, o[0].atm.vmr.T, o[0].cat, 2, [1] * 4,
+            [0] * 4, np.zeros((4, 4)), np.zeros((4, 4)), np.ones(4), np.full((4, 2), 0.5), 288.0),
+        "nlte_field_from_numpy": lambda o: nlte_field_from_numpy({}),
+        "zeeman_scene_from_numpy": lambda o: zeeman_scene_from_numpy({}),
+        "zeeman_propmat_views": lambda o: zeeman_propmat_views(
+            o[1], o[4], o[0].pf, o[2].t, o[2].p, o[2].vmr, o[2].mag, [180.0, 0.0]),
+        "build_zeeman_nlte_scene": lambda o: build_zeeman_nlte_scene(n_lev=3, n_freq=8,
+                                                                     n_lines=4),
         "zeeman_catalog_from_par": lambda o: zeeman_catalog_from_par(zrows(), ["H2O", "O2"]),
         "zeeman_catalog_from_numpy": lambda o: zeeman_catalog_from_numpy({}),
         "padded_zeeman_catalog_from_numpy": lambda o: padded_zeeman_catalog_from_numpy({}),
@@ -140,16 +169,22 @@ def test_import_and_collection_need_no_triton_or_nvcc(tmp_path):
         d for d in os.environ.get("PATH", "").split(os.pathsep)
         if d and not os.path.exists(os.path.join(d, "nvcc"))
     )
-    env = dict(os.environ, PATH=path, CUDA_HOME=str(tmp_path / "no-cuda"))
+    # third-party pytest plugins stay unloaded (they take no part in
+    # collecting these files), and the interpreter ends without tearing
+    # down JAX and torch: together ~3 of the subprocess's ~14 s
+    env = dict(os.environ, PATH=path, CUDA_HOME=str(tmp_path / "no-cuda"),
+               PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
     tests = sorted(str(p) for p in (ROOT / "tests").glob("test_torch_*.py"))
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "sys.modules['triton'] = None\n"
         "import arts_tpu_torch\n"
         "for m in pkgutil.walk_packages(arts_tpu_torch.__path__, 'arts_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import pytest\n"
-        f"sys.exit(pytest.main(['--collect-only', '-q', '-p', 'no:cacheprovider', *{tests!r}]))\n"
+        f"rc = pytest.main(['--collect-only', '-q', '-p', 'no:cacheprovider', *{tests!r}])\n"
+        "sys.stdout.flush()\n"
+        "os._exit(int(rc))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)

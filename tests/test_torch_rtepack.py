@@ -3,6 +3,9 @@ the CPU at float64: the rtepack algebra, the polarized emission recursion,
 the 1D path geometry and simulate_clearsky_polarized on the 2_zeeman
 example's scene, on identical inputs made with numpy."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +34,20 @@ from arts_tpu_torch.rtepack import emission as E
 from arts_tpu_torch.rtepack import propmat as PM
 
 T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
+# jax.jit with LLVM's optimizations off: a quarter less compile time than
+# the JAX function's own jit
+ref_jit = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _propmats(rng, n, scale=1.0):
@@ -120,38 +137,55 @@ def _line(law):
     )]
 
 
+def _paths():
+    """The up-looking path from the ground and the nadir path from 100 km,
+    in 2 km steps, per background."""
+    return {"space": geometric_path_1d(0.0, 0.0, 0.0, 100e3, 2000.0),
+            "surface": geometric_path_1d(100e3, 180.0, 0.0, 100e3, 2000.0)}
+
+
+F_POL = 118.7503e9 + np.linspace(-5e6, 5e6, 41)
+ZEEMAN_KW = dict(ju=[1.0], jl=[1.0], gu_z=[-2.8], gl_z=[-2.77])
+
+
+@pytest.fixture(scope="module")
+def polarized_refs():
+    """JAX's simulate_clearsky_polarized on the 2_zeeman scene for both
+    backgrounds, compiled as one function."""
+    z, t, vmr, mag = _zeeman_scene_arrays()
+    jz = jnp.asarray(z)
+    jatm = JAtmosphere1D(z=jz, t=jnp.asarray(t),
+                         p=j_hydrostatic_pressure(jz, jnp.asarray(t), 101325.0),
+                         vmr=jnp.asarray(vmr), mag=jnp.asarray(mag))
+    jscene = JZeemanScene(atm=jatm,
+                          zcat=j_expand_zeeman(j_build_catalog(_line(JLaw)), **ZEEMAN_KW),
+                          pf=j_rigid_rotor_table(1, 150.0, 1.0),
+                          surface_temperature=jnp.asarray(275.0))
+    paths = {bg: tuple(jnp.asarray(getattr(p, k)) for k in ("alt", "za", "dr"))
+             for bg, p in _paths().items()}
+    refs = ref_jit(lambda sc, f, paths: {
+        bg: j_simulate_clearsky_polarized(sc, f, *paths[bg], background=bg) for bg in paths})
+    return {bg: np.asarray(w) for bg, w in refs(jscene, jnp.asarray(F_POL), paths).items()}
+
+
 @pytest.mark.parametrize("background", ["space", "surface"])
-def test_simulate_clearsky_polarized_matches_jax(background):
+def test_simulate_clearsky_polarized_matches_jax(polarized_refs, background):
     """The 2_zeeman scene at 41 frequencies over +-5 MHz, an up-looking
     path in 2 km steps (and, for the surface background, a nadir path
     from 100 km): Stokes I..V within 1e-10 of scale, V within 1e-10 of
     its own scale, and |V| > 0."""
     z, t, vmr, mag = _zeeman_scene_arrays()
-    f = 118.7503e9 + np.linspace(-5e6, 5e6, 41)
-    kw = dict(ju=[1.0], jl=[1.0], gu_z=[-2.8], gl_z=[-2.77])
-    obs = (0.0, 0.0) if background == "space" else (100e3, 180.0)
-    path = geometric_path_1d(obs[0], obs[1], 0.0, 100e3, 2000.0)
-
+    path = _paths()[background]
     p = hydrostatic_pressure(T(z), T(t), 101325.0)
     atm = Atmosphere1D(z=T(z), t=T(t), p=p, vmr=T(vmr), mag=T(mag))
     cat = build_catalog(_line(Law), device="cpu", dtype=torch.float64)
-    scene = ZeemanScene(atm=atm, zcat=expand_zeeman(cat, **kw),
+    scene = ZeemanScene(atm=atm, zcat=expand_zeeman(cat, **ZEEMAN_KW),
                         pf=rigid_rotor_table(1, 150.0, 1.0, device="cpu", dtype=torch.float64),
                         surface_temperature=T(275.0))
-    got = simulate_clearsky_polarized(scene, f, path.alt, path.za, path.dr,
+    got = simulate_clearsky_polarized(scene, F_POL, path.alt, path.za, path.dr,
                                       background=background, device="cpu",
                                       dtype=torch.float64).numpy()
-
-    jz = jnp.asarray(z)
-    jatm = JAtmosphere1D(z=jz, t=jnp.asarray(t),
-                         p=j_hydrostatic_pressure(jz, jnp.asarray(t), 101325.0),
-                         vmr=jnp.asarray(vmr), mag=jnp.asarray(mag))
-    jscene = JZeemanScene(atm=jatm, zcat=j_expand_zeeman(j_build_catalog(_line(JLaw)), **kw),
-                          pf=j_rigid_rotor_table(1, 150.0, 1.0),
-                          surface_temperature=jnp.asarray(275.0))
-    want = np.asarray(j_simulate_clearsky_polarized(
-        jscene, jnp.asarray(f), jnp.asarray(path.alt), jnp.asarray(path.za),
-        jnp.asarray(path.dr), background=background))
+    want = polarized_refs[background]
     assert got.shape == (41, 4)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
     vmax = np.abs(want[:, 3]).max()

@@ -12,6 +12,17 @@ from arts_tpu_torch.ops import voigt_kernel as V
 T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's tensor code: under parallel test
+    workers the thread pool's waits after each small operation cost more
+    than the operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pol_lines(counts, L_far=0, seed=4):
     """Lines of polarizations 0, 1, 2 in the given counts, shuffled, on a
     300-point grid (two tiles); unique f0; half of them with a finite
@@ -51,10 +62,10 @@ def test_voigt_inputs_make_polarization_pure_blocks():
     col = dict(zip(V.REC_COLS, rec.unbind(-1)))
     pad = col["cutoff"] == -1.0
     assert int((~pad).sum()) == polidx.size
-    for name in ("s_re", "s_im", "swc", "pad"):
+    for name in ("s_re", "s_im", "swc", "res"):
         assert not col[name][pad].any(), name
     assert bool((col["z_imag"][pad] == 1.0).all())
-    assert not col["pad"].any()
+    assert not col["res"].any()  # no remainders given
     for p in (0, 2):
         blocks = (blkpol == p).nonzero()[:, 0]
         got = torch.cat([col["f0"][b][~pad[b]] for b in blocks])

@@ -8,6 +8,7 @@ of the two Pallas kernels once in interpret mode on a one- or two-step
 grid."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,9 @@ T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
 SPECIES = ["H2O", "O2"]
 # the oblique field of tests/test_zeeman.py:123: all 7 components nonzero
 MAG, ZA, AA = [10e-6, -20e-6, 40e-6], 65.0, 30.0
+# jax.jit with LLVM's optimizations off: the JAX references compile in a
+# fraction of the time of their own jit
+ref_jit = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -108,7 +112,7 @@ def profile():
 def reference(cats, profile):
     _, jz, _, jpf, _ = cats
     f, pts = profile
-    fn = jax.jit(jax.vmap(lambda t, p, v: JZ.zeeman_propmat(
+    fn = ref_jit(jax.vmap(lambda t, p, v: JZ.zeeman_propmat(
         jnp.asarray(f), jz, jpf, t, p, v, jnp.asarray(pts["mag"]), ZA, AA)))
     return np.asarray(fn(*(jnp.asarray(pts[k]) for k in ("T", "P", "vmr"))))
 
@@ -217,8 +221,8 @@ def test_voigt_sum_pol_plain_matches_jax_interpret():
     (preferred_element_type), so the bound is float32's: 1e-6 of scale."""
     cols, polidx, table = _pol_case()
     got = V.voigt_sum_pol(*map(T, cols), torch.as_tensor(polidx), T(table))
-    want = np.asarray(j_voigt_sum_pol(*map(jnp.asarray, cols), jnp.asarray(table[polidx]),
-                                      tf=256, tl=128, interpret=True))
+    want = np.asarray(ref_jit(lambda *a: j_voigt_sum_pol(*a, tf=256, tl=128, interpret=True))(
+        *map(jnp.asarray, cols), jnp.asarray(table[polidx])))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
 
 
@@ -259,7 +263,7 @@ def test_pole_moments_and_near_correction_match_jax():
     against JAX at 1e-12 (float64)."""
     f, comps, cut = _pole_case()
     got = MP.zeeman_pole_moments(*map(T, comps), terms=MP.MP_TERMS, kappa=6.0)
-    want = jax.jit(jax.vmap(lambda *c: JMP.zeeman_pole_moments(*c, jnp.asarray(comps[-1]), 5, 6.0)))(
+    want = ref_jit(jax.vmap(lambda *c: JMP.zeeman_pole_moments(*c, jnp.asarray(comps[-1]), 5, 6.0)))(
         *map(jnp.asarray, comps[:-1]))
     for key in ("c_re", "g0", "R", "rnear", "rnear2", "M_re", "M_im", "swcsum", "count"):
         w = np.asarray(want[key])
@@ -269,7 +273,7 @@ def test_pole_moments_and_near_correction_match_jax():
     args = ([got[k] for k in ("c_re", "g0", "rnear")], [want[k] for k in ("c_re", "g0", "rnear")])
     out = MP.near_correction(T(f), torch.zeros(2, 7, f.size, dtype=torch.float64), *args[0],
                              T(cut), *map(T, comps[:-2]), T(comps[-1]), noff=8)
-    near = jax.jit(JMP.near_correction, static_argnames=("noff", "wofz_n"))
+    near = ref_jit(JMP.near_correction, static_argnames=("noff", "wofz_n"))
     jout = np.asarray(near(
         jnp.asarray(f), jnp.zeros((2, 8, f.size)), *args[1], jnp.asarray(cut),
         *map(jnp.asarray, comps[:-2]), jnp.asarray(comps[-1]), noff=8, wofz_n=16))[:, :7]
@@ -289,10 +293,10 @@ def test_zeeman_mp_plain_matches_jax_interpret():
     keys = ("c_re", "g0", "R", "rnear2")
     got = MP.zeeman_mp_eval(T(f), *(m[k] for k in keys), T(cut), m["M_re"], m["M_im"],
                             m["swcsum"]).numpy()
-    want = np.asarray(JMP.zeeman_mp_eval(
+    want = np.asarray(ref_jit(lambda *a: JMP.zeeman_mp_eval(
+        *a, terms=5, tf=64, pb=16, interpret=True))(
         jnp.asarray(f), *(jnp.asarray(m[k].numpy()) for k in keys), jnp.asarray(cut),
-        *(jnp.asarray(m[k].numpy()) for k in ("M_re", "M_im", "swcsum")),
-        terms=5, tf=64, pb=16, interpret=True))[:, :7]
+        *(jnp.asarray(m[k].numpy()) for k in ("M_re", "M_im", "swcsum"))))[:, :7]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
