@@ -3,7 +3,10 @@
 Four paths so far, with hand-written CUDA kernels for sm_90a, each beside
 its plain PyTorch version:
   * all-sky: line-by-line gas absorption through the Voigt kernel, then
-    the fused DISORT solve (gas_absorption_profile, simulate_allsky);
+    the fused DISORT solve (gas_absorption_profile, simulate_allsky),
+    thermal or sun-lit (mu0, fbeam: the beam instance of stage 1, the
+    azimuthal Fourier modes, the TMS/IMS corrections, BRDF surfaces from
+    disort.brdf), e.g. scene.build_solar_scene;
   * Zeeman: polarized propagation matrices through the polarized Voigt
     kernel (lbl.zeeman.zeeman_propmat, backend="pallas") or the
     parent-pole kernel (lbl.zeeman.zeeman_propmat_profile), the IGRF-13

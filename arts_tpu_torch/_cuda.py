@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel, incremented by each wrapper where it launches
-LAUNCHES = {"voigt_sum": 0, "disort_stage1": 0, "disort_stage23": 0,
+LAUNCHES = {"voigt_sum": 0, "disort_stage1": 0, "disort_stage1_beam": 0, "disort_stage23": 0,
             "voigt_sum_pol": 0, "zeeman_mp": 0, "eigh_jacobi": 0, "fused_eigen": 0}
 
 # build facts for chip_smoke.py: seconds, library path, ptxas report
@@ -157,8 +157,8 @@ _SIGNATURES = {
     # nl, nweid, split, stream (voigt_sum_pol alike)
     "voigt_sum": [_P] * 10 + [_I] * 5 + [_P],
     # pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt, ub, vb,
-    # n, L, B, sweeps, stream
-    "disort_stage1": [_P] * 14 + [_I] * 4 + [_P],
+    # n, L, B, sweeps, qp, qm, ebt, ebb (null without the beam), mu0, stream
+    "disort_stage1": [_P] * 14 + [_I] * 4 + [_P] * 4 + [ctypes.c_double, _P],
     # gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, S, utop, vtop, ubot, vbot,
     # n, L, B, stream
     "disort_stage23": [_P] * 14 + [_I] * 3 + [_P],
@@ -184,16 +184,16 @@ def library():
     return lib
 
 
-def launch(name, dtype, *args):
+def launch(name, dtype, *args, counter=None):
     """Call kernel `name` for `dtype` on the current stream; raise on a
-    launch error; count the launch."""
+    launch error; count the launch (under `counter`, default `name`)."""
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
     fn = getattr(library(), f"{name}_{suffix}")
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}_{suffix}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1
 
 
 def ptr(t):

@@ -124,10 +124,14 @@ struct E1 {
 // rows below it, and the pivot row's thread keeps it scaled.  The
 // back-substitution hands each solved row to the team the same way, so that
 // every thread ends with all of X.  The operations and their order are those
-// of one thread's elimination (the plain version's _ge_solve).
-template <typename T, int N, int K, int TEAM>
+// of one thread's elimination (the plain version's _ge_solve); EXACT keeps
+// each product and difference rounded on its own (no FMA), as the plain
+// version rounds them.
+template <typename T, int N, int K, int TEAM, bool EXACT = false>
 __device__ __forceinline__ void ge_team(T (&A)[N / TEAM][N], T (&B)[N / TEAM][K], T (&X)[N][K],
                                         int k) {
+  using jacobi::mul_rn;
+  using jacobi::sub_rn;
   constexpr int R = N / TEAM;
   auto bcast = [](T v, int src) {
     if constexpr (TEAM == 1) return v;
@@ -152,10 +156,17 @@ __device__ __forceinline__ void ge_team(T (&A)[N / TEAM][N], T (&B)[N / TEAM][K]
     for (int m = 0; m < R; ++m) {
       if (k + TEAM * m > i) {
         const T f = A[m][i];
+        if constexpr (EXACT) {
 #pragma unroll
-        for (int j = i + 1; j < N; ++j) A[m][j] -= f * u[j];
+          for (int j = i + 1; j < N; ++j) A[m][j] = sub_rn(A[m][j], mul_rn(f, u[j]));
 #pragma unroll
-        for (int j = 0; j < K; ++j) B[m][j] -= f * x[j];
+          for (int j = 0; j < K; ++j) B[m][j] = sub_rn(B[m][j], mul_rn(f, x[j]));
+        } else {
+#pragma unroll
+          for (int j = i + 1; j < N; ++j) A[m][j] -= f * u[j];
+#pragma unroll
+          for (int j = 0; j < K; ++j) B[m][j] -= f * x[j];
+        }
       }
     }
   }
@@ -165,7 +176,10 @@ __device__ __forceinline__ void ge_team(T (&A)[N / TEAM][N], T (&B)[N / TEAM][K]
     for (int j = 0; j < K; ++j) {
       T acc = B[i / TEAM][j];
 #pragma unroll
-      for (int r = i + 1; r < N; ++r) acc -= A[i / TEAM][r] * X[r][j];
+      for (int r = i + 1; r < N; ++r) {
+        if constexpr (EXACT) acc = sub_rn(acc, mul_rn(A[i / TEAM][r], X[r][j]));
+        else acc -= A[i / TEAM][r] * X[r][j];
+      }
       X[i][j] = bcast(acc, i % TEAM);
     }
   }
@@ -206,7 +220,9 @@ __device__ __forceinline__ void h12(T c, const T* ff, const T* dg, int k, T* h1,
 // One (lane, layer) problem of stage 1 (THERMAL) or of fused_eigen (WRITE_K)
 // on a team of E1::TEAM threads: pp/pm staged and turned into H1/H2 in the
 // problem's tiles, the thermal particular solution (ge_team; thread k
-// stores rows k + TEAM m), Cholesky of -H1 (every thread; the tile of H1
+// stores rows k + TEAM m) and with BEAM the beam's (a third ge_team solve,
+// each thread forming its rows of the system and of z+-, added with the
+// layer's attenuation before the stores), Cholesky of -H1 (every thread; the tile of H1
 // becomes Lc, zero above the diagonal), Hsym = -Lc^T H2 Lc (each thread its
 // columns, the upper part mirrored through the X tile), the team's Jacobi,
 // k = sqrt(max(lambda, 1e-24)), Ek = exp(-k dtau), then V through the X
@@ -214,13 +230,16 @@ __device__ __forceinline__ void h12(T c, const T* ff, const T* dg, int k, T* h1,
 // (Y +- D)/2 with D = diag(1/(mu F)) H2 diag(w/F) Y (1/k_j).  Arrays are
 // [layer, entry, lane]; lanes past B compute on the last lane's data and
 // store nothing.
-template <typename T, int N, bool THERMAL, bool WRITE_K>
+template <typename T, int N, bool THERMAL, bool WRITE_K, bool BEAM = false>
 __device__ __forceinline__ void eigen_stage(
     const T* __restrict__ pp, const T* __restrict__ pm, const T* __restrict__ om,
     const T* __restrict__ dtau, const T* __restrict__ tb0, const T* __restrict__ tb1,
     const T* __restrict__ qtab, T* __restrict__ kout, T* __restrict__ ek, T* __restrict__ gp,
     T* __restrict__ gm, T* __restrict__ ut, T* __restrict__ vt, T* __restrict__ ub,
-    T* __restrict__ vb, int B, int sweeps) {
+    T* __restrict__ vb, int B, int sweeps, const T* __restrict__ qp = nullptr,
+    const T* __restrict__ qm = nullptr, const T* __restrict__ ebt = nullptr,
+    const T* __restrict__ ebb = nullptr, T mu0 = T(0)) {
+  static_assert(THERMAL || !BEAM, "the beam's particular solution is stage 1's");
   using C = E1<T, N>;
   constexpr int NN = C::NN, TEAM = C::TEAM, S = C::S;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -288,6 +307,84 @@ __device__ __forceinline__ void eigen_stage(
         if (t == k) Y[m][0] = Q[t + TEAM * m][0];
     }
     ge_team<T, N, 1, TEAM>(A, Y, X, k);
+    // the beam (all modes): (ApB AmB - I/mu0^2) s = ApB (q+ + q-)/mu -
+    // (q+ - q-)/(mu mu0), d = -mu0 (AmB s - (q+ + q-)/mu), z+- = (s +- d)/2;
+    // thread k forms rows k + TEAM m of the system and of z+-.  The system
+    // squares the conditioning of ApB and AmB (and is singular where k mu0
+    // = 1), so every product and sum rounds on its own, in the plain
+    // version's order, from ApB/AmB formed again from pp/pm the same way:
+    // the kernel then carries the plain version's rounding, not an
+    // amplified difference from it
+    [[maybe_unused]] T zp[R], zm[R], et, eb;
+    if constexpr (BEAM) {
+      using jacobi::add_rn;
+      using jacobi::mul_rn;
+      using jacobi::sub_rn;
+      const long vec0c = static_cast<long>(l) * N * B + bc;  // loads
+      // entry e of ApB (plus false) or AmB: sc * (F (c (Pp -/+ Pm) - diag(1/w)) F)
+      auto AB = [&](int e, bool plus) -> T {
+        const T u = pp[mat0 + static_cast<long>(e) * B];
+        const T v = pm[mat0 + static_cast<long>(e) * B];
+        const T d = e / N == e % N ? dg[e / N] : T(0);
+        const T h = sub_rn(mul_rn(mul_rn(ff[e], c), plus ? add_rn(u, v) : sub_rn(u, v)), d);
+        return mul_rn(sc[e], h);
+      };
+      const T imu0 = T(1) / mu0;
+      const T imu02 = T(1) / mul_rn(mu0, mu0);
+      T spm[N], Bs[R][1], Sv[N][1], Pr[R][N];
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        spm[j] = mul_rn(add_rn(qp[vec0c + static_cast<long>(j) * B],
+                               qm[vec0c + static_cast<long>(j) * B]), imu[j]);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int r = k + TEAM * m;
+#pragma unroll
+        for (int j = 0; j < N; ++j) A[m][j] = AB(r * N + j, false);  // ApB's row r
+        T a = mul_rn(A[m][0], spm[0]);
+#pragma unroll
+        for (int j = 1; j < N; ++j) a = add_rn(a, mul_rn(A[m][j], spm[j]));
+        const T dq = sub_rn(qp[vec0c + static_cast<long>(r) * B],
+                            qm[vec0c + static_cast<long>(r) * B]);
+        Bs[m][0] = sub_rn(a, mul_rn(mul_rn(dq, imu[r]), imu0));
+      }
+      // the thread's rows of ApB AmB - I/mu0^2, a column of AmB at a time
+#pragma unroll
+      for (int c2 = 0; c2 < N; ++c2) {
+        T col[N];
+#pragma unroll
+        for (int t = 0; t < N; ++t) col[t] = AB(t * N + c2, true);
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          T a = mul_rn(A[m][0], col[0]);
+#pragma unroll
+          for (int t = 1; t < N; ++t) a = add_rn(a, mul_rn(A[m][t], col[t]));
+          Pr[m][c2] = c2 == k + TEAM * m ? sub_rn(a, imu02) : a;
+        }
+      }
+      ge_team<T, N, 1, TEAM, true>(Pr, Bs, Sv, k);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int r = k + TEAM * m;
+        T a = mul_rn(AB(r * N, true), Sv[0][0]);
+#pragma unroll
+        for (int t = 1; t < N; ++t) a = add_rn(a, mul_rn(AB(r * N + t, true), Sv[t][0]));
+        // s and (q+ + q-)/mu of row r, selected at compile-time indices
+        T sr = T(0), pr = T(0);
+#pragma unroll
+        for (int t = 0; t < TEAM; ++t) {
+          if (t == k) {
+            sr = Sv[t + TEAM * m][0];
+            pr = spm[t + TEAM * m];
+          }
+        }
+        const T d = mul_rn(-mu0, sub_rn(a, pr));
+        zp[m] = mul_rn(T(0.5), add_rn(sr, d));
+        zm[m] = mul_rn(T(0.5), sub_rn(sr, d));
+      }
+      et = ebt[one0];
+      eb = ebb[one0];
+    }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       if (valid && i % TEAM == k) {
@@ -296,10 +393,17 @@ __device__ __forceinline__ void eigen_stage(
         const T p0 = T(0.5) * (ppr + pmr);
         const T r0 = T(0.5) * (ppr - pmr);
         const T q1d = Q[i][0] * dt;
-        ut[vec0 + static_cast<long>(i) * B] = p0;
-        vt[vec0 + static_cast<long>(i) * B] = r0;
-        ub[vec0 + static_cast<long>(i) * B] = p0 + q1d;
-        vb[vec0 + static_cast<long>(i) * B] = r0 + q1d;
+        if constexpr (BEAM) {
+          ut[vec0 + static_cast<long>(i) * B] = p0 + zp[i / TEAM] * et;
+          vt[vec0 + static_cast<long>(i) * B] = r0 + zm[i / TEAM] * et;
+          ub[vec0 + static_cast<long>(i) * B] = p0 + q1d + zp[i / TEAM] * eb;
+          vb[vec0 + static_cast<long>(i) * B] = r0 + q1d + zm[i / TEAM] * eb;
+        } else {
+          ut[vec0 + static_cast<long>(i) * B] = p0;
+          vt[vec0 + static_cast<long>(i) * B] = r0;
+          ub[vec0 + static_cast<long>(i) * B] = p0 + q1d;
+          vb[vec0 + static_cast<long>(i) * B] = r0 + q1d;
+        }
       }
     }
   }
@@ -463,7 +567,12 @@ __device__ __forceinline__ void eigen_stage(
   }
 }
 
-template <typename T, int N>
+// stage 1; the BEAM instance also reads the beam sources qp/qm [layer, n,
+// lane] (the (2 - delta_m0) fbeam omega'/4 pi prefactor applied) and the
+// beam's attenuation at the layer's top and bottom ebt/ebb [layer, lane];
+// without BEAM they are not read (the parameters after sweeps come last, so
+// that the instances without the beam keep their machine code)
+template <typename T, int N, bool BEAM>
 __global__ void __launch_bounds__(kThreads1)
 stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
               const T* __restrict__ om, const T* __restrict__ dtau,
@@ -471,9 +580,10 @@ stage1_kernel(const T* __restrict__ pp, const T* __restrict__ pm,
               const T* __restrict__ qtab, T* __restrict__ ek,
               T* __restrict__ gp, T* __restrict__ gm, T* __restrict__ ut,
               T* __restrict__ vt, T* __restrict__ ub, T* __restrict__ vb,
-              int B, int sweeps) {
-  eigen_stage<T, N, true, false>(pp, pm, om, dtau, tb0, tb1, qtab, nullptr, ek, gp, gm, ut, vt,
-                                 ub, vb, B, sweeps);
+              int B, int sweeps, const T* __restrict__ qp, const T* __restrict__ qm,
+              const T* __restrict__ ebt, const T* __restrict__ ebb, T mu0) {
+  eigen_stage<T, N, true, false, BEAM>(pp, pm, om, dtau, tb0, tb1, qtab, nullptr, ek, gp, gm, ut,
+                                       vt, ub, vb, B, sweeps, qp, qm, ebt, ebb, mu0);
 }
 
 // the standalone eigen stage: stage 1 without the particular solution,
@@ -846,20 +956,21 @@ int eigen_smem(K kernel, size_t& smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-template <typename T, int N>
+template <typename T, int N, bool BEAM>
 int launch_stage1(const void* const* a, void* const* o, int L, int B,
-                  int sweeps, cudaStream_t s) {
+                  int sweeps, double mu0, cudaStream_t s) {
   size_t smem;
-  if (const int e = eigen_smem<T, N>(stage1_kernel<T, N>, smem)) return e;
+  if (const int e = eigen_smem<T, N>(stage1_kernel<T, N, BEAM>, smem)) return e;
   const dim3 grid((B + E1<T, N>::NPB - 1) / E1<T, N>::NPB, L);
-  stage1_kernel<T, N><<<grid, kThreads1, smem, s>>>(
+  stage1_kernel<T, N, BEAM><<<grid, kThreads1, smem, s>>>(
       static_cast<const T*>(a[0]), static_cast<const T*>(a[1]),
       static_cast<const T*>(a[2]), static_cast<const T*>(a[3]),
       static_cast<const T*>(a[4]), static_cast<const T*>(a[5]),
       static_cast<const T*>(a[6]), static_cast<T*>(o[0]),
       static_cast<T*>(o[1]), static_cast<T*>(o[2]), static_cast<T*>(o[3]),
       static_cast<T*>(o[4]), static_cast<T*>(o[5]), static_cast<T*>(o[6]),
-      B, sweeps);
+      B, sweeps, static_cast<const T*>(a[7]), static_cast<const T*>(a[8]),
+      static_cast<const T*>(a[9]), static_cast<const T*>(a[10]), static_cast<T>(mu0));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -884,16 +995,22 @@ int launch_stage23(const void* const* a, void* const* o, int L, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the beam instance when qp is given (then qm, ebt, ebb too, and mu0 > 0)
 template <typename T>
 int stage1(const void* pp, const void* pm, const void* om, const void* dtau,
            const void* tb0, const void* tb1, const void* qtab, void* ek,
            void* gp, void* gm, void* ut, void* vt, void* ub, void* vb, int n,
-           int L, int B, int sweeps, void* stream) {
-  const void* a[] = {pp, pm, om, dtau, tb0, tb1, qtab};
+           int L, int B, int sweeps, const void* qp, const void* qm, const void* ebt,
+           const void* ebb, double mu0, void* stream) {
+  const void* a[] = {pp, pm, om, dtau, tb0, tb1, qtab, qp, qm, ebt, ebb};
   void* o[] = {ek, gp, gm, ut, vt, ub, vb};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 8) return launch_stage1<T, 8>(a, o, L, B, sweeps, s);
-  if (n == 4) return launch_stage1<T, 4>(a, o, L, B, sweeps, s);
+  const bool beam = qp != nullptr;
+  if (beam && (!qm || !ebt || !ebb || !(mu0 > 0.0))) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 8) return beam ? launch_stage1<T, 8, true>(a, o, L, B, sweeps, mu0, s)
+                          : launch_stage1<T, 8, false>(a, o, L, B, sweeps, mu0, s);
+  if (n == 4) return beam ? launch_stage1<T, 4, true>(a, o, L, B, sweeps, mu0, s)
+                          : launch_stage1<T, 4, false>(a, o, L, B, sweeps, mu0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -946,7 +1063,8 @@ int eigen(const void* pp, const void* pm, const void* om, const void* dtau,
   const void *pp, const void *pm, const void *om, const void *dtau,        \
       const void *tb0, const void *tb1, const void *qtab, void *ek,        \
       void *gp, void *gm, void *ut, void *vt, void *ub, void *vb, int n,   \
-      int L, int B, int sweeps, void *stream
+      int L, int B, int sweeps, const void *qp, const void *qm,            \
+      const void *ebt, const void *ebb, double mu0, void *stream
 #define STAGE23_ARGS                                                       \
   const void *gp, const void *gm, const void *ek, const void *rhs,         \
       const void *rsurf, const void *ut, const void *vt, const void *ub,   \
@@ -955,11 +1073,11 @@ int eigen(const void* pp, const void* pm, const void* om, const void* dtau,
 
 extern "C" int disort_stage1_f32(STAGE1_ARGS) {
   return stage1<float>(pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt,
-                       ub, vb, n, L, B, sweeps, stream);
+                       ub, vb, n, L, B, sweeps, qp, qm, ebt, ebb, mu0, stream);
 }
 extern "C" int disort_stage1_f64(STAGE1_ARGS) {
   return stage1<double>(pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt,
-                        ub, vb, n, L, B, sweeps, stream);
+                        ub, vb, n, L, B, sweeps, qp, qm, ebt, ebb, mu0, stream);
 }
 extern "C" int disort_stage23_f32(STAGE23_ARGS) {
   return stage23<float>(gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, S, utop, vtop,

@@ -1,6 +1,6 @@
 """The fused DISORT solve: two CUDA kernels, their plain PyTorch versions,
 and the lane-layout and right-hand-side assembly around them (port of
-arts_tpu/disort/fused_kernel.py, thermal sources only).
+arts_tpu/disort/fused_kernel.py).
 
 Every (frequency x Fourier mode) problem is a lane, lane = m * F + f;
 tensors are laid out [layer, entry, lane] so that neighbouring threads
@@ -10,7 +10,9 @@ read neighbouring lanes.
            layer) problem, sharing one eigen core with fused_eigen):
            phase matrices -> H1/H2 -> Cholesky(-H1) -> Hsym = -Lc^T H2 Lc
            -> tournament cyclic Jacobi -> k, Ek = exp(-k dtau), G+/G- and
-           the thermal particular solution at the layer top and bottom.
+           the thermal particular solution at the layer top and bottom;
+           under a solar beam (the kernel's beam instance) also the
+           beam's, a third solve with the same ApB/AmB.
   stages 2+3 (kernel `disort_stage23`, 8 threads per lane, each
            owning columns of the layer's system): the structured
            block-tridiagonal Thomas elimination forward over the layers,
@@ -22,9 +24,9 @@ read neighbouring lanes.
 Eigenmode order is whatever the Jacobi sweep leaves (no sort): the
 boundary-value problem treats modes symmetrically, and the plain versions
 run the same schedule, so kernel and plain version agree mode for mode.
-Beam sources are not ported (mu0 > 0 raises in disort()).
 """
 
+import ctypes
 import math
 
 import torch
@@ -62,37 +64,48 @@ def _ge_solve(A, B):
 # ---------------------------------------------------------------------------
 
 
-def stage1(pp, pm, om, dtau, tb0, tb1, qtab, sweeps):
+def stage1(pp, pm, om, dtau, tb0, tb1, qtab, sweeps, beam=None):
     """(ek [L, n, B], gp, gm [L, n*n, B], ut, vt, ub, vb [L, n, B]).
 
     pp/pm [L, n*n, B] phase matrices; om, dtau [L, B] scaled single
     scattering albedo and optical depth; tb0/tb1 [L, B] the pre-masked
-    (1 - omega') thermal source coefficients; qtab from quad_table.  On a
-    CUDA tensor this launches csrc/disort_fused.cu:disort_stage1; on a
-    CPU tensor it runs the plain version."""
+    (1 - omega') thermal source coefficients; qtab from quad_table; beam
+    None or beam_inputs' (qp, qm [L, n, B], ebt, ebb [L, B], mu0), whose
+    particular solution is added to the radiances.  On a CUDA tensor this
+    launches csrc/disort_fused.cu:disort_stage1 (its beam instance under a
+    beam); on a CPU tensor it runs the plain version."""
     if pp.device.type == "cpu":
-        return stage1_plain(pp, pm, om, dtau, tb0, tb1, qtab, sweeps)
+        return stage1_plain(pp, pm, om, dtau, tb0, tb1, qtab, sweeps, beam)
     dev, dt = pp.device, pp.dtype
     L, nn, B = pp.shape
     n = math.isqrt(nn)
     _check_lanes("disort_stage1", dev, dt, n)
-    for name, t, shape in (("pp", pp, (L, nn, B)), ("pm", pm, (L, nn, B)),
-                           ("om", om, (L, B)), ("dtau", dtau, (L, B)),
-                           ("tb0", tb0, (L, B)), ("tb1", tb1, (L, B)),
-                           ("qtab", qtab, (5 * n + 2 * nn,))):
+    ins = [("pp", pp, (L, nn, B)), ("pm", pm, (L, nn, B)), ("om", om, (L, B)),
+           ("dtau", dtau, (L, B)), ("tb0", tb0, (L, B)), ("tb1", tb1, (L, B)),
+           ("qtab", qtab, (5 * n + 2 * nn,))]
+    if beam is not None:
+        qp, qm, ebt, ebb, mu0 = beam
+        if not mu0 > 0.0:
+            raise ValueError(f"disort_stage1: the beam needs mu0 > 0, got {mu0}")
+        ins += [("qp", qp, (L, n, B)), ("qm", qm, (L, n, B)), ("ebt", ebt, (L, B)),
+                ("ebb", ebb, (L, B))]
+    for name, t, shape in ins:
         _cuda.check(name, t, dev, dt, shape)
     ek = torch.empty((L, n, B), dtype=dt, device=dev)
     gp = torch.empty((L, nn, B), dtype=dt, device=dev)
     gm = torch.empty_like(gp)
     ut, vt, ub, vb = (torch.empty_like(ek) for _ in range(4))
     if L and B:
+        none = ctypes.c_void_p()
+        extra = ((none,) * 4 + (0.0,) if beam is None else
+                 tuple(map(_cuda.ptr, (qp, qm, ebt, ebb))) + (float(mu0),))
         _cuda.launch("disort_stage1", dt, *map(_cuda.ptr, (
             pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt, ub, vb)),
-            n, L, B, sweeps)
+            n, L, B, sweeps, *extra, counter=None if beam is None else "disort_stage1_beam")
     return ek, gp, gm, ut, vt, ub, vb
 
 
-def stage1_plain(pp, pm, om, dtau, tb0, tb1, qtab, sweeps):
+def stage1_plain(pp, pm, om, dtau, tb0, tb1, qtab, sweeps, beam=None):
     """The plain PyTorch version of stage1: the same arithmetic, batched
     over all (layer, lane) problems as matrices [L, B, n, n]; the eigen
     part is disort/eigen_kernel.py's, shared with fused_eigen."""
@@ -112,11 +125,45 @@ def stage1_plain(pp, pm, om, dtau, tb0, tb1, qtab, sweeps):
     p0 = 0.5 * (p_plus_r + p_minus_r)
     r0 = 0.5 * (p_plus_r - p_minus_r)
     q1d = q1 * dtau[..., None]
-
     lane = lambda x: x.permute(0, 2, 1).contiguous()  # [L, B, n] -> [L, n, B]
     flat = lambda x: x.permute(0, 2, 3, 1).reshape(L, nn, B).contiguous()
-    return (lane(ek), flat(Gp), flat(Gm), lane(p0), lane(r0),
-            lane(p0 + q1d), lane(r0 + q1d))
+    ut, vt, ub, vb = p0, r0, p0 + q1d, r0 + q1d
+    if beam is not None:
+        zp, zm, ebt, ebb = _beam_plain(sc * H1, sc * H2, imu, *beam)
+        ut, vt = ut + zp * ebt, vt + zm * ebt
+        ub, vb = ub + zp * ebb, vb + zm * ebb
+    return (lane(ek), flat(Gp), flat(Gm), lane(ut), lane(vt), lane(ub), lane(vb))
+
+
+def _beam_plain(ApB, AmB, imu, qp, qm, ebt, ebb, mu0):
+    """The beam's particular solution of every (layer, lane) problem:
+    (z+, z- [L, B, n], ebt, ebb [L, B, 1]) from ApB/AmB [L, B, n, n] and
+    beam_inputs' lane-layout sources: (ApB AmB - I/mu0^2) s = ApB (q+ +
+    q-)/mu - (q+ - q-)/(mu mu0), d = -mu0 (AmB s - (q+ + q-)/mu), z+- = (s
+    +- d)/2, each product and sum in the beam kernel's order.  The system
+    squares the conditioning of ApB and AmB, so the kernel keeps this
+    rounding (no FMA) rather than amplify a difference from it."""
+    n = ApB.shape[-1]
+    qp, qm = qp.permute(0, 2, 1), qm.permute(0, 2, 1)  # [L, B, n]
+    one = torch.ones((), dtype=ApB.dtype, device=ApB.device)
+    m0 = one * mu0  # mu0 in the working dtype, as the kernel takes it
+    imu0, imu02 = one / m0, one / (m0 * m0)
+
+    def mv(A, x):  # sum_t A[..., :, t] x[..., t], t in order
+        a = A[..., 0] * x[..., :1]
+        for t in range(1, n):
+            a = a + A[..., t] * x[..., t : t + 1]
+        return a
+
+    spm = (qp + qm) * imu
+    rhs = mv(ApB, spm) - (qp - qm) * imu * imu0
+    Asys = ApB[..., :, :1] * AmB[..., :1, :]
+    for t in range(1, n):
+        Asys = Asys + ApB[..., :, t : t + 1] * AmB[..., t : t + 1, :]
+    Asys = Asys - torch.eye(n, dtype=ApB.dtype, device=ApB.device) * imu02
+    s = _ge_solve(Asys, rhs[..., None])[..., 0]
+    d = -m0 * (mv(AmB, s) - spm)
+    return 0.5 * (s + d), 0.5 * (s - d), ebt[..., None], ebb[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +287,17 @@ def stage1_inputs(leg_scaled, omega_p, dtau_p, tb0, tb1, *, lam, sign, mu, w):
             vecMF(tb1), quad_table(mu, w, dt, dev))
 
 
+def beam_inputs(qp, qm, ebea, mu0):
+    """stage1's beam argument (qp, qm [L, n, B], ebt, ebb [L, B], mu0) in
+    lane layout from the per-frequency beam sources qp/qm [F, M, L, n]
+    and the scaled attenuation ebea [F, L+1] at the levels."""
+    F, M, L, n = qp.shape
+    MF = M * F
+    lanes = lambda x: x.permute(2, 3, 1, 0).reshape(L, n, MF).contiguous()
+    vecF = lambda x: x[:, None, :].expand(F, M, L).permute(2, 1, 0).reshape(L, MF).contiguous()
+    return lanes(qp), lanes(qm), vecF(ebea[:, :-1]), vecF(ebea[:, 1:]), float(mu0)
+
+
 def stage23_inputs(ut, vt, ub, vb, rsurf, b_neg, rhs_surf):
     """(rhs [L, 2n, B], rsurf [n*n, B]): the boundary-value right-hand
     sides from stage 1's particular radiances and the boundary terms.
@@ -262,24 +320,28 @@ def stage23_inputs(ut, vt, ub, vb, rsurf, b_neg, rhs_surf):
 
 
 def fused_u_lvl(leg_scaled, omega_p, dtau_p, tb0, tb1, rsurf, b_neg, rhs_surf,
-                *, lam, sign, mu, w, sweeps=None, plain=False):
+                *, lam, sign, mu, w, qp=None, qm=None, ebea=None, mu0=0.0, sweeps=None,
+                plain=False):
     """(u_lvl, v_lvl) [F, M, L+1, N]: up- and downwelling radiances at the
     quadrature nodes, per frequency, Fourier mode and level.
 
     leg_scaled [F, L, nlegc]; omega_p, dtau_p [F, L]; tb0/tb1 [F, M, L]
     pre-masked mode-0 (1 - omega') thermal coefficients; rsurf [F, M, N, N];
     b_neg, rhs_surf [F, M, N]; lam/sign numpy quadrature tables; mu, w the
-    quadrature nodes and weights (numpy).  plain=True runs the kernels'
-    plain versions on any device."""
+    quadrature nodes and weights (numpy); under a beam from mu0 > 0 the
+    prefactored sources qp/qm [F, M, L, N] and the scaled attenuation ebea
+    [F, L+1] (None without).  plain=True runs the kernels' plain versions
+    on any device."""
     F, L = omega_p.shape
     M = tb0.shape[1]
     n = len(mu)
     if sweeps is None:
         sweeps = _default_sweeps(leg_scaled.dtype)
     s1, s23 = (stage1_plain, stage23_plain) if plain else (stage1, stage23)
+    beam = None if qp is None else beam_inputs(qp, qm, ebea, mu0)
     ek, gp, gm, ut, vt, ub, vb = s1(*stage1_inputs(
         leg_scaled, omega_p, dtau_p, tb0, tb1, lam=lam, sign=sign, mu=mu, w=w,
-    ), sweeps)
+    ), sweeps, beam)
     rhs, rsurf_f = stage23_inputs(ut, vt, ub, vb, rsurf, b_neg, rhs_surf)
     utop, vtop, ubot, vbot = s23(gp, gm, ek, rhs, rsurf_f, ut, vt, ub, vb)
     unpack = lambda x: x.view(L, n, M, F).permute(3, 2, 0, 1)  # [F, M, L, n]

@@ -3,8 +3,8 @@ particles -> DISORT (port of arts_tpu/fwd_allsky.py).
 
 Per frequency: the vertical profile's gas absorption (the Voigt kernel
 over all levels at once), particle extinction and phase moments, layer
-optical depths, Planck sources, and one batched DISORT solve over all
-frequencies.
+optical depths, Planck sources and the solar beam, and one batched DISORT
+solve over all frequencies.
 """
 
 import dataclasses
@@ -56,15 +56,21 @@ def gas_absorption_profile(scene: AllskyScene, f_grid, plain: bool = False,
     return k.t().contiguous()
 
 
-def simulate_allsky(scene: AllskyScene, f_grid, nquad: int = 16,
-                    nfourier: int | None = None, k_gas=None,
-                    fast_linalg: bool | None = None, plain: bool = False,
+def simulate_allsky(scene: AllskyScene, f_grid, nquad: int = 16, nleg: int | None = None,
+                    nfourier: int | None = None, mu0: float = 0.0, fbeam=0.0,
+                    phi0: float = 0.0, phis: tuple = (), k_gas=None,
+                    fast_linalg: bool | None = None, thermal: bool = True,
+                    intensity_correction: bool = False, plain: bool = False,
                     device=None, dtype=None):
-    """DISORT radiance and flux field for the vertical profile of
-    scene.atm, thermal emission only, nquad phase moments.
+    """DISORT radiance and flux field for the vertical profile of scene.atm
+    with nleg (default nquad) phase moments.
 
     Returns a DisortOutput with a leading frequency axis; levels run from
-    the TOA to the surface.  k_gas: optional precomputed [F, Z] gas
+    the TOA to the surface.  mu0 > 0 adds a solar beam of flux fbeam
+    (scalar or [F]) from zenith cosine mu0 and azimuth phi0 (degrees);
+    phis are the azimuths of the field u; intensity_correction adds the
+    TMS/IMS corrections to u.  thermal=False leaves out the thermal
+    emission (a solar-band run).  k_gas: optional precomputed [F, Z] gas
     absorption (TOA-first, from gas_absorption_profile).  fast_linalg:
     None or True solves by the fused DISORT kernels, False by the
     differentiable route (disort/solver.py), through which autograd and
@@ -74,16 +80,19 @@ def simulate_allsky(scene: AllskyScene, f_grid, nquad: int = 16,
     scene, f_grid, k_gas = move((scene, f_grid, k_gas), dev, dt)
     if k_gas is None:
         k_gas = gas_absorption_profile(scene, f_grid, plain=plain, device=dev, dtype=dt)
-    inp = allsky_input(scene, f_grid, k_gas, nleg=nquad)
-    return disort(inp, nquad=nquad, nfourier=nfourier, fast_linalg=fast_linalg,
-                  plain=plain, device=dev, dtype=dt)
+    nleg = nleg or nquad
+    inp = allsky_input(scene, f_grid, k_gas, nleg=nleg, fbeam=fbeam, thermal=thermal)
+    return disort(inp, nquad=nquad, nleg=nleg, nfourier=nfourier, mu0=mu0, phi0=phi0,
+                  phis=phis, intensity_correction=intensity_correction,
+                  fast_linalg=fast_linalg, plain=plain, device=dev, dtype=dt)
 
 
-def allsky_input(scene: AllskyScene, f_grid, k_gas, nleg: int) -> DisortInput:
+def allsky_input(scene: AllskyScene, f_grid, k_gas, nleg: int, fbeam=0.0,
+                 thermal: bool = True) -> DisortInput:
     """The DISORT problem of every frequency: layer optical depths, single
-    scattering albedos and phase moments from gas and particles, and the
-    Planck sources at the levels, the surface and the top (the cosmic
-    background)."""
+    scattering albedos and phase moments from gas and particles, the beam
+    flux fbeam (scalar or [F]), and the Planck sources at the levels, the
+    surface and the top (the cosmic background), zero when not thermal."""
     dt, dev = f_grid.dtype, f_grid.device
     z = scene.atm.z.flip(0)  # TOA..surface
     pts = scene.atm.at(z)
@@ -107,15 +116,24 @@ def allsky_input(scene: AllskyScene, f_grid, k_gas, nleg: int) -> DisortInput:
                                     0.0), 0, -1)  # [F, L, NLeg]
     # g_0 = 1, out of place so that torch.func transforms pass
     leg = torch.cat([torch.ones_like(leg[..., :1]), leg[..., 1:]], -1)
+    if thermal:
+        b_levels = planck(f_grid[:, None], pts.t[None, :])
+        b_surf = planck(f_grid, scene.surface_temperature)
+        b_top = planck(f_grid, torch.tensor(
+            const.cosmic_microwave_background_temperature, dtype=dt, device=dev))
+    else:
+        # a solar-band run: the thermal emission is another call's
+        b_levels = torch.zeros((F, Z), dtype=dt, device=dev)
+        b_surf = b_top = torch.zeros(F, dtype=dt, device=dev)
     return DisortInput(
         tau=tau,
         omega=omega,
         leg=leg,
         f=torch.zeros_like(tau),  # no fractional scattering
-        b_levels=planck(f_grid[:, None], pts.t[None, :]),
+        b_levels=b_levels,
         fisot=torch.zeros(F, dtype=dt, device=dev),
         albedo=scene.surface_albedo.expand(F),
-        b_surf=planck(f_grid, scene.surface_temperature),
-        b_top=planck(f_grid, torch.tensor(
-            const.cosmic_microwave_background_temperature, dtype=dt, device=dev)),
+        b_surf=b_surf,
+        b_top=b_top,
+        fbeam=torch.as_tensor(fbeam, dtype=dt, device=dev).expand(F),
     )

@@ -129,7 +129,8 @@ def absorption(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr, block=256,
 def voigt_sum_args(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr):
     """Positional voigt_sum arguments for the points T [Z]: the grid and
     line columns shifted by a common anchor (float32 keeps sub-kHz
-    resolution of f - f0 only so)."""
+    resolution of f - f0 only so), then the centres' rounding remainders
+    (voigt_sum's res)."""
     ls = lineshape_params(cat, T, P, vmr)
     sr, si, _, inv_gd, z_imag = line_strengths_parts(cat, pf, T, P, vmr, ls)
     has_cut = torch.isfinite(cat.cutoff)
@@ -138,13 +139,18 @@ def voigt_sum_args(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr):
     wcut = torch.where(has_cut, wc, torch.zeros_like(wc))
     cut_k = torch.where(has_cut, cat.cutoff, 1e30).expand_as(sr)
     # f0 - anchor is exact (Sterbenz: both within a factor 2 of each other
-    # in a band), so the pressure shift is added after it; f0s - anchor
-    # would first round the shifted centre to the float32 spacing of f0,
-    # ~16 kHz at 200 GHz, a few percent of a Doppler width
+    # in a band), and the pressure shift is added to it with the sum's
+    # rounding error carried apart (TwoSum) for the kernel to subtract
+    # after f - f0: the sum alone rounds to the float32 spacing of
+    # |f0 - anchor|, up to 4 kHz 50 GHz from the anchor
     anchor = f_grid.mean()
-    f0_rel = (cat.f0 - anchor) + (ls[..., ID0] + ls[..., IDV])
+    base = (cat.f0 - anchor).expand_as(sr)
+    shift = ls[..., ID0] + ls[..., IDV]
+    f0_rel = base + shift
+    b_v = f0_rel - base
+    res = (base - (f0_rel - b_v)) + (shift - b_v)
     return (f_grid - anchor, f0_rel, inv_gd, z_imag, sr, si, cut_k,
-            wcut.real, wcut.imag)
+            wcut.real, wcut.imag, res)
 
 
 def absorption_kernel(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr,

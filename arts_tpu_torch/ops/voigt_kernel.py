@@ -372,18 +372,21 @@ def voigt_inputs(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re,
 
 
 def voigt_sum(f_grid, f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im,
-              plain=False):
+              res=None, plain=False):
     """Re sum_l s_l (w(z_l(f)) - wcut_l) masked to |f - f0_l| <= cut_l.
 
     f_grid [F]; line columns [L] or [Z, L] (one row per level); returns
     [F] or [Z, F].  Frequencies and f0 should share a common anchor shift
     for float32.  cutoff must be finite (1e30 with wcut 0 means none).
+    res: the centres' rounding remainders (voigt_inputs; 0 when None).
     plain=True runs the kernel's plain PyTorch version on any device.
     """
     one = f0.dim() == 1
     cols = [c[None] if one else c for c in
             (f0, inv_gd, z_imag, s_re, s_im, cutoff, wcut_re, wcut_im)]
-    args, mp = voigt_inputs(f_grid, *cols)
+    if res is not None and one:
+        res = res[None]
+    args, mp = voigt_inputs(f_grid, *cols, res=res)
     out = ((voigt_kernel_plain if plain else voigt_kernel)(*args) + mp)[:, : f_grid.shape[0]]
     return out[0] if one else out
 

@@ -7,11 +7,14 @@ atmosphere, one Henyey-Greenstein cloud between 4 and 9 km, and a 288 K
 surface.  build_zeeman_inputs is bench.py's Zeeman stage on that scene, and
 build_zeeman_nlte_scene the polarized radiance scene around it (IGRF-13
 field, reflecting surface, a non-LTE band).
+build_solar_scene is that scene lit by the sun (the solar DISORT path),
+build_sun_camera the JAX package's sun-camera example.
 build_cloud_retrieval is an OEM retrieval of cloud extinction, single
 scattering albedo and surface temperature in a cloudy microwave window.
 build_stage23_case gives the DISORT stage 2+3 kernel random problems on
 which its elimination shows, build_stage1_case the stage 1 kernel random
-scattering problems on which its Jacobi sweeps show, build_zeeman_mp_case
+scattering problems on which its Jacobi sweeps show (build_beam_case with
+random beam sources for its beam instance), build_zeeman_mp_case
 the zeeman_mp kernel random pole records on which every part of its sum
 shows.  build_clearsky_measurement is an ATMS 183 GHz scan line over the
 benchmark scene, build_clearsky_retrieval a water-vapour retrieval from
@@ -41,7 +44,7 @@ from .lbl.nlte import NlteField, boltzmann_ratios, nlte_fit_profile
 from .lbl.partfun import rigid_rotor_table
 from .lbl.tmodel import Law
 from .lbl.zeeman import pad_zeeman_catalog, tune_zeeman_profile
-from .path import geometric_path_1d
+from .path import PathGeometry, geometric_path_1d
 from .ops.zeeman_mp_kernel import MP_TERMS, NCOMP, pole_records
 from .retrieval import covariance
 from .retrieval.targets import RetrievalTarget, StateMapping
@@ -243,6 +246,68 @@ def build_stage1_case(nquad, B, L, seed, device=None, dtype=None):
                           t(src * rng.uniform(-1.0, 1.0, (B, 1, L))),
                           lam=lam, sign=sign, mu=mu, w=w)
     return tuple(x.to(dt).contiguous() for x in s1)
+
+
+def build_beam_case(nquad, B, L, seed, mu0, device=None, dtype=None):
+    """(stage 1 inputs, beam): build_stage1_case's B random scattering
+    problems of L layers and stage 1's beam argument for them
+    (fused_kernel.beam_inputs' layout): sources q+/q- uniform in -1..1
+    and 0..2, the attenuation at the layer top uniform in 0.05..1 and at
+    its bottom 0.2..1 of that, from zenith cosine mu0.  Built in float64,
+    then cast to dtype."""
+    dev, dt = resolve(device, dtype)
+    ins = build_stage1_case(nquad, B, L, seed, device=dev, dtype=dt)
+    rng = np.random.default_rng(seed + 1000)
+    n = nquad // 2
+    ebt = rng.uniform(0.05, 1.0, (L, B))
+    beam = (rng.uniform(-1.0, 1.0, (L, n, B)), rng.uniform(0.0, 2.0, (L, n, B)), ebt,
+            ebt * rng.uniform(0.2, 1.0, (L, B)))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev).to(dt).contiguous()
+    return ins, tuple(map(t, beam)) + (float(mu0),)
+
+
+def build_solar_scene(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=None):
+    """(AllskyScene, f_grid, simulate_allsky keywords) of the sun-lit
+    benchmark scene: build_scene's atmosphere, catalog and cloud, the sun
+    at 60 degrees zenith (mu0 = 0.5, azimuth 0) with fbeam = pi (as in the
+    JAX package's examples/12_sun_camera_allsky.py), thermal emission on
+    (both sources), 16 streams and 16 Fourier modes, the cloud's phase
+    function to 32 moments (so that the TMS correction, the single
+    scattering of the moments past the solve's 16, is not zero), and the
+    field u at azimuths 0, 90 and 180 degrees with the TMS/IMS
+    corrections."""
+    scene, f = build_scene(n_lev=n_lev, n_freq=n_freq, n_lines=n_lines, device=device,
+                           dtype=dtype)
+    kw = dict(nquad=16, nleg=32, nfourier=16, mu0=0.5, fbeam=float(np.pi), phi0=0.0,
+              phis=(0.0, 90.0, 180.0), thermal=True, intensity_correction=True)
+    return scene, f, kw
+
+
+def build_sun_camera(device=None, dtype=None):
+    """(AllskyScene, f_grid, paths, observer) of the JAX package's
+    examples/12_sun_camera_allsky.py: a 40-level N2 atmosphere to 60 km
+    with a forward-scattering haze below 3 km (HG, ext 2e-5 / m, ssa 0.85,
+    g 0.7), a 290 K black surface, one frequency (230 GHz), the sun at 60
+    degrees zenith (fbeam = pi, azimuth 0, no thermal emission), and a
+    ring of 7 camera pixels at 150 degrees zenith, azimuths 0-180 degrees,
+    read by the azimuth-resolved allsky_observer (16 streams, 16 Fourier
+    modes, 32 phase moments)."""
+    from .sensor.observers import allsky_observer
+
+    dev, dt = resolve(device, dtype)
+    atm = standard_atmosphere(n_levels=40, z_top=60e3, species=("N2",), device=dev, dtype=dt)
+    haze = HenyeyGreenstein(
+        ext=torch.where(atm.z < 3e3, torch.full_like(atm.z, 2e-5), torch.zeros_like(atm.z)),
+        ssa=torch.full_like(atm.z, 0.85), g=torch.full_like(atm.z, 0.7))
+    scene = AllskyScene(atm=atm, cat=None, pf=None, scatterers=(haze,),
+                        surface_temperature=torch.tensor(290.0, dtype=dt, device=dev),
+                        surface_albedo=torch.tensor(0.0, dtype=dt, device=dev))
+    paths = [PathGeometry(alt=np.asarray([60e3, 0.0]), s=np.asarray([0.0, 60e3]),
+                          za=np.asarray([150.0, 150.0]), background="surface", aa=a)
+             for a in np.linspace(0.0, 180.0, 7)]
+    obs = allsky_observer(nquad=16, nfourier=16, nleg=32, mu0=0.5, fbeam=float(np.pi),
+                          phi0=0.0, thermal=False)
+    return scene, torch.tensor([230e9], dtype=dt, device=dev), paths, obs
 
 
 def build_zeeman_mp_case(Z, NP, F, seed, device=None, dtype=None):

@@ -51,10 +51,12 @@ def stack_azimuths(paths, device=None, dtype=None):
     return torch.as_tensor(out, dtype=dt, device=dev)
 
 
-def _simulate_batch(scene, f_grid, alts, drs, zas, backgrounds, observer=None):
+def _simulate_batch(scene, f_grid, alts, drs, zas, backgrounds, observer=None, aas=None):
     """Radiances [G, F] for stacked geometries: mixed backgrounds run as one
     sub-batch each, in order of first appearance, and are put back in the
-    geometries' order."""
+    geometries' order.  An observer with wants_azimuth (the
+    azimuth-resolved DISORT observer) also gets the geometries'
+    line-of-sight azimuths aas [G] (0 when None)."""
     observer = observer or clearsky_observer()
     groups = {}
     for i, b in enumerate(backgrounds):
@@ -62,7 +64,12 @@ def _simulate_batch(scene, f_grid, alts, drs, zas, backgrounds, observer=None):
     parts, order = [], []
     for bg, idx in groups.items():
         sel = torch.as_tensor(idx, device=alts.device)
-        parts.append(observer(scene, f_grid, alts[sel], drs[sel], zas[sel], bg))
+        if getattr(observer, "wants_azimuth", False):
+            a = torch.zeros(len(idx), dtype=alts.dtype, device=alts.device) if aas is None \
+                else aas[sel]
+            parts.append(observer(scene, f_grid, alts[sel], drs[sel], zas[sel], bg, aas=a))
+        else:
+            parts.append(observer(scene, f_grid, alts[sel], drs[sel], zas[sel], bg))
         order += idx
     I = torch.cat(parts, 0)
     if order == sorted(order):
@@ -84,7 +91,7 @@ def measurement_vector(scene, sensor: SensorArray, f_grid, paths, background="su
     scene, f_grid = _prepare(scene, f_grid, device, dtype)
     alts, drs, zas, bgs = stack_paths(paths, f_grid.device, f_grid.dtype)
     I = _simulate_batch(scene, f_grid, alts, drs, zas, [b or background for b in bgs],
-                        observer=observer)
+                        observer=observer, aas=stack_azimuths(paths, f_grid.device, f_grid.dtype))
     return sensor.apply(I)
 
 
@@ -149,7 +156,7 @@ def measurement_vector_from_obsels(scene, obsels, device=None, dtype=None):
         f_grid = torch.as_tensor(f_grid).to(device=dev, dtype=dt)
         alts, drs, zas, bgs = stack_paths(paths, dev, dt)
         cache.append(_simulate_batch(scene, f_grid, alts, drs, zas, [b or bg for b in bgs],
-                                     observer=observer))
+                                     observer=observer, aas=stack_azimuths(paths, dev, dt)))
     y = torch.cat([ob.sensor.apply(cache[g]) for ob, g in zip(obsels, o2g)])
     return y, len(groups)
 

@@ -5,6 +5,9 @@ to radiances,
     observer(scene, f_grid, alts [G, NP], drs [G, NP-1], zas [G, NP],
              background) -> I [G, F]
 
+(an observer with wants_azimuth also takes aas [G], the line-of-sight
+azimuths)
+
 on the device and in the dtype of f_grid; sensor/measurement.py runs the
 scalar clear-sky, polarized (Zeeman) and DISORT observers through one
 deduplication and contraction path.
@@ -12,6 +15,7 @@ deduplication and contraction path.
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -103,39 +107,58 @@ def polarized_observer(component: int = 0, **kw):
     return run
 
 
-def _interp(x, xp, fp):
+def _interp(x, xp, fp, col=None):
     """np.interp of each x [G] on the ascending grid xp [N] for every row
-    of fp [F, N]: [G, F], clamped at the grid ends."""
+    of fp [F, N]: [G, F], clamped at the grid ends.  With col [G], fp is
+    [F, N, C] and geometry g reads its column col[g]."""
     i1 = torch.clamp(torch.searchsorted(xp, x), 1, xp.shape[0] - 1)
     i0 = i1 - 1
     w = torch.clamp((x - xp[i0]) / (xp[i1] - xp[i0]), 0.0, 1.0)[:, None]
-    return fp[:, i0].T * (1.0 - w) + fp[:, i1].T * w
+    if col is None:
+        return fp[:, i0].T * (1.0 - w) + fp[:, i1].T * w
+    return fp[:, i0, col].T * (1.0 - w) + fp[:, i1, col].T * w
 
 
-def allsky_observer(nquad: int = 16, nfourier: int = 1, level: str = "toa",
+def allsky_observer(nquad: int = 16, nfourier: int | None = 1, level: str = "toa",
                     fast_linalg: bool | None = None, **kw):
-    """DISORT observer for thermal fields: one radiation-field solve per
-    (scene, f_grid), read at each geometry's viewing angle (its first path
-    point's zenith angle; the radiance arriving from za propagates with
-    mu = -cos za), at the top ("toa", upwelling) or the bottom level
-    ("surface", downwelling).  A thermal field is azimuth-symmetric, so
-    the azimuthal mean u0 is exact.  A solar beam (fbeam) or an
-    azimuth-resolved request raises NotImplementedError: the beam is not
-    ported yet (ROADMAP §A 6)."""
+    """DISORT observer: one radiation-field solve per (scene, f_grid), read
+    at each geometry's viewing angle (its first path point's zenith angle;
+    the radiance arriving from za propagates with mu = -cos za), at the
+    top ("toa", upwelling) or the bottom level ("surface", downwelling).
+    Keywords (nleg, mu0, fbeam, phi0, thermal, k_gas, ...) go to
+    simulate_allsky.
+
+    A thermal field is azimuth-symmetric, so the azimuthal mean u0 is
+    exact.  With a solar beam (fbeam != 0) and more than one Fourier mode
+    the observer is azimuth-resolved (run.wants_azimuth): given each
+    geometry's line-of-sight azimuth aas [G] (degrees), the solve
+    synthesizes the Fourier series at the group's distinct azimuths, with
+    the TMS/IMS corrections, and each geometry reads u at its own (mu,
+    phi); without aas it reads u0."""
     from ..fwd_allsky import simulate_allsky
 
-    fbeam = torch.as_tensor(kw.pop("fbeam", 0.0))
-    if bool((fbeam != 0).any()) or kw.pop("phis", ()):
-        raise NotImplementedError("allsky_observer: the solar beam and azimuth-resolved "
-                                  "fields are not ported yet (ROADMAP §A 6)")
     if level not in ("toa", "surface"):
         raise ValueError(f"allsky_observer: level {level!r} (toa, surface)")
+    beam_on = float(torch.as_tensor(kw.get("fbeam", 0.0)).abs().max()) != 0.0
+    resolved = beam_on and (nfourier is None or nfourier > 1)
+    lvl = 0 if level == "toa" else -1
 
-    def run(scene, f_grid, alts, drs, zas, background):
+    def run(scene, f_grid, alts, drs, zas, background, aas=None):
+        mu_v = -torch.cos(torch.deg2rad(zas[:, 0]))  # [G]
+        if resolved and aas is not None:
+            # the distinct azimuths of this geometry group, on the host
+            aa0 = np.round(torch.as_tensor(aas).detach().cpu().double().numpy(), 6)
+            phis = tuple(np.unique(aa0).tolist())
+            pidx = torch.as_tensor([phis.index(a) for a in aa0.tolist()], device=f_grid.device)
+            out = simulate_allsky(scene, f_grid, nquad=nquad, nfourier=nfourier,
+                                  fast_linalg=fast_linalg, phis=phis,
+                                  intensity_correction=True, **kw, **_on(f_grid))
+            mu = torch.as_tensor(out.mu, dtype=f_grid.dtype, device=f_grid.device)
+            return _interp(mu_v, mu, out.u[:, lvl], pidx)
         out = simulate_allsky(scene, f_grid, nquad=nquad, nfourier=nfourier,
                               fast_linalg=fast_linalg, **kw, **_on(f_grid))
-        u = out.u0[:, 0 if level == "toa" else -1, :]  # [F, NQuad], mu ascending
         mu = torch.as_tensor(out.mu, dtype=f_grid.dtype, device=f_grid.device)
-        return _interp(-torch.cos(torch.deg2rad(zas[:, 0])), mu, u)
+        return _interp(mu_v, mu, out.u0[:, lvl, :])  # u0: [F, NQuad], mu ascending
 
+    run.wants_azimuth = resolved
     return run

@@ -19,10 +19,14 @@
    on random scattering problems, where the Jacobi sweeps turn the
    eigenvectors away from the coordinate axes (all seven outputs, G+-
    included), each at 4096 + 5 lanes (not a multiple of a block's lanes)
-   with 59 layers and with one (L = 1); checks two float32 runs of each
-   (and of fused_eigen) bit-identical, times stage 1 on the bench inputs
-   and on random problems of their shape, and logs the traffic of stage
-   2+3's algorithm beside its bound and the kernels' ptxas report;
+   with 59 layers and with one (L = 1); holds stage 1's beam instance
+   against the plain version's beam branch on those random problems with
+   random beam sources (scene.build_beam_case), the sun at mu0 = 0.5,
+   0.92 and 0.15, requiring the beam's part of the radiances to show;
+   checks two float32 runs of each (and of fused_eigen and the beam
+   instance) bit-identical, times stage 1 on the bench inputs and on
+   random problems of their shape, and logs the traffic of stage 2+3's
+   algorithm beside its bound and the kernels' ptxas report;
 4. drives the all-sky main path (2048 lines x 4096 frequencies x 60
    levels, 16 streams, float32) through gas_absorption_profile and
    simulate_allsky, with every launch counter set to 0 just before and
@@ -84,6 +88,22 @@
    holds the differentiable all-sky route (simulate_allsky(fast_linalg=
    False)) and the fused route in float32 against the float64 plain
    differentiable route on the same inputs at the bench guards;
+9b. drives the sun-lit all-sky path at full width (scene.build_solar_scene:
+   the bench scene with the sun at mu0 = 0.5, fbeam = pi, thermal
+   emission on, 16 streams and 16 Fourier modes, u at 3 azimuths with the
+   TMS/IMS corrections) through gas_absorption_profile and simulate_allsky
+   in float32, the counts set to 0 just before and read just after, the
+   median of 5 calls and a profiled one; holds it against the float64
+   plain route on the same inputs on every 16th frequency (flux_up 3e-3,
+   u0 and u 5e-3 of scale), also without the gas (which is opaque above
+   the cloud: only there does the beam reach a scattering layer, and its
+   part of u0 and the TMS/IMS corrections must show), and the
+   differentiable route (without the gas) on every 64th;
+   times the beam instance of stage 1 at that shape and holds it against
+   its plain version there (without the gas; float64 2e-5, float32 1e-4,
+   two float32 runs bit-identical); and runs the sun
+   camera of the JAX package's example 12 through allsky_observer in
+   float64 on the card (its halo checks, card against CPU within 1e-10);
 10. runs the OEM cloud retrieval at full width (scene.build_cloud_retrieval:
    51 levels, 4096 frequencies, 16 streams, float32): its Jacobian
    against the float64 plain route on the same inputs, then the
@@ -234,11 +254,16 @@ def ge_flops(n, k):
     return total
 
 
-def stage1_flops(n, sweeps):
+def stage1_flops(n, sweeps, beam=False):
     """Operations per (lane, layer) problem of disort_stage1, counted from
-    its loops (add, multiply, divide, sqrt and exp count 1)."""
+    its loops (add, multiply, divide, sqrt and exp count 1); with the beam
+    the beam's solve too (the algorithm's: ApB and AmB counted once)."""
     ops = 7 * n * n  # H1, H2
     ops += 2 * n * n + 2 * n + ge_flops(n, 2) + ge_flops(n, 1) + 9 * n  # thermal
+    if beam:
+        ops += 3 + 2 * n + n * (2 * n - 1) + 3 * n  # 1/mu0, spm, ApB spm - dq
+        ops += n * n * (2 * n - 1) + n + ge_flops(n, 1)  # ApB AmB - I/mu0^2, s
+        ops += n * (2 * n - 1) + 2 * n + 4 * n + 4 * 2 * n  # d, z+-, the radiances
     ops += sum(3 + 2 * j + (n - 1 - j) * (2 * j + 1) for j in range(n))  # Cholesky
     ops += n * sum(1 + 2 * (n - 1 - m) for m in range(n))  # H2 Lc
     ops += sum((n - i) * (1 + 2 * (n - 1 - i)) for i in range(n))  # Lc^T (H2 Lc)
@@ -310,10 +335,11 @@ def phase_build():
     for line in info.get("ptxas", "").splitlines():
         m = re.search(r"(voigt_sum_kernel|combine_kernel|stage1_kernel|stage23_kernel|"
                       r"zeeman_mp_kernel|fused_eigen_kernel|eigh_team_kernel)I([fd])"
-                      r"(?:Li(\d+)E)?", line)
+                      r"(?:Li(\d+)E)?(?:Lb([01])E)?", line)
         if "Compiling entry function" in line and m:
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}" + (
-                f", {m.group(3)}>" if m.group(3) else ">")
+                f", {m.group(3)}" if m.group(3) else "") + (
+                f", {'true' if m.group(4) == '1' else 'false'}" if m.group(4) else "") + ">"
         elif name and ("Used" in line or "spill" in line):
             text = line.split(':', 1)[-1].strip()
             PTXAS.setdefault(name, []).append(text)
@@ -346,7 +372,8 @@ def phase_voigt(scenes, dev):
     for dt, rtol, atol in ((torch.float64, 0.0, 1e-9), (torch.float32, 2e-6, 5e-7)):
         scene, f = scenes[dt]
         pts = scene.atm.at(scene.atm.z.flip(0))
-        kin, _ = V.voigt_inputs(*voigt_sum_args(f, scene.cat, scene.pf, pts.t, pts.p, pts.vmr))
+        args = voigt_sum_args(f, scene.cat, scene.pf, pts.t, pts.p, pts.vmr)
+        kin, _ = V.voigt_inputs(*args[:9], res=args[9])
         kins[dt] = kin
         full = V.voigt_kernel(*kin)
         torch.cuda.synchronize()
@@ -416,7 +443,7 @@ def phase_disort(scenes, dev):
     from arts_tpu_torch.disort import fused_kernel as FK
     from arts_tpu_torch.disort.solver import solve_terms
     from arts_tpu_torch.fwd_allsky import allsky_input
-    from arts_tpu_torch.scene import build_stage1_case, build_stage23_case
+    from arts_tpu_torch.scene import build_beam_case, build_stage1_case, build_stage23_case
 
     scene, f = scenes[torch.float64]
     inp = {torch.float64: allsky_input(scene, f, gas_absorption_profile(
@@ -528,7 +555,31 @@ def phase_disort(scenes, dev):
                                                               EK.eigen_lanes(*eig))),
                         f"fused_eigen float32 random L={Lr}, B={Bb + 5}: two runs differ")
                 log(f"{what}: two runs bit-identical, and two of fused_eigen")
-        errs[dt] = (e1, e23)
+        # the beam instance on the same random problems with random beam
+        # sources (scene.build_beam_case), the sun at three zenith cosines:
+        # all seven outputs as above, and the beam's part of the radiances
+        # (plain with the beam minus plain without) at least 100 rtol of
+        # their scale
+        e1b = 0.0
+        for Lr, mu0 in ((Lb, 0.5), (Lb, 0.92), (Lb, 0.15), (1, 0.5)):
+            ins, beam = build_beam_case(NQUAD, Bb + 5, Lr, seed=Lr, mu0=mu0, device=dev,
+                                        dtype=dt)
+            got = FK.stage1(*ins, sweeps[dt], beam)
+            want = FK.stage1_plain(*ins, sweeps[dt], beam)
+            without = FK.stage1_plain(*ins, sweeps[dt])
+            torch.cuda.synchronize()
+            what = f"disort_stage1 beam {str(dt)[6:]} random L={Lr}, B={Bb + 5}, mu0={mu0}"
+            part = min(float((w - o).double().abs().max() / w.double().abs().max())
+                       for w, o in zip(want[3:], without[3:]))
+            require(part >= 100 * rtol, f"{what}: the beam's part {part:.2e} of the radiances' "
+                    "scale is within 100 rtol")
+            e1b = max(e1b, hold_stage1(got, want, rtol, floor, what))
+            log(f"{what}: the beam's part of each radiance at least {part:.2e} of its scale")
+            if dt == torch.float32 and Lr == Lb and mu0 == 0.5:
+                require(all(torch.equal(x, y) for x, y in zip(got, FK.stage1(*ins, 6, beam))),
+                        f"{what}: two runs differ")
+                log(f"{what}: two runs bit-identical")
+        errs[dt] = (e1, e23, e1b)
 
     # the whole fused solve: float64 kernels against float64 plain, and the
     # float32 kernels against float64 plain at the on-chip guard bounds
@@ -571,8 +622,11 @@ def phase_disort(scenes, dev):
                + 4 * L * n * B * 4)
     log(f"disort_stage1 float32 [{L} x {B}] n={n}: {ms1:.3f} ms (plain {plain1:.1f} ms), "
         f"bound {b1[0]:.4f} ms ({b1[1]}); {ms1r:.3f} ms on random problems of that shape")
-    log_ptxas("stage1_kernel<float, 8>", "stage1_kernel<float, 4>", "stage1_kernel<double, 8>",
-              "stage1_kernel<double, 4>", "fused_eigen_kernel<float, 8>",
+    log_ptxas("stage1_kernel<float, 8, false>", "stage1_kernel<float, 4, false>",
+              "stage1_kernel<double, 8, false>", "stage1_kernel<double, 4, false>",
+              "stage1_kernel<float, 8, true>", "stage1_kernel<float, 4, true>",
+              "stage1_kernel<double, 8, true>", "stage1_kernel<double, 4, true>",
+              "fused_eigen_kernel<float, 8>",
               "fused_eigen_kernel<float, 4>", "fused_eigen_kernel<double, 8>",
               "fused_eigen_kernel<double, 4>")
     log(f"disort_stage23 float32 [{L} x {B}] n={n}: {ms23:.3f} ms (plain {plain23:.1f} ms), "
@@ -590,6 +644,9 @@ def phase_disort(scenes, dev):
              also_replaces="arts_tpu/disort/fused_kernel.py:508",
              max_abs_err=errs[dt][1], ms=ms23, plain_ms=plain23, bound_ms=b23[0],
              bound_by=b23[1], **common),
+        # timed at the solar scene's shape by phase_solar_allsky
+        dict(name="disort_stage1_beam", replaces="arts_tpu/disort/fused_kernel.py:447",
+             max_abs_err=errs[dt][2], **common),
     ]
 
 
@@ -943,6 +1000,186 @@ def phase_differentiable_allsky(scenes, dev, _cuda, reps=3):
     log(f"differentiable route, float32, {f.shape[0]} freqs x {scene.atm.z.shape[0]} levels, "
         f"{NQUAD} streams: median {np.median(times):.2f} ms of {reps} runs "
         f"{[round(x, 3) for x in times]}; launches over the {reps} runs {launches}")
+
+
+SOLAR_EVERY = 16  # the float64 plain route's frequencies: every 16th
+SOLAR_DIFF_EVERY = 64  # the differentiable route's: every 64th
+
+
+def phase_solar_allsky(dev, _cuda, entry, reps=5):
+    """The sun-lit all-sky path at full width (scene.build_solar_scene: the
+    bench scene, the sun at mu0 = 0.5, fbeam = pi, thermal emission on, 16
+    streams and 16 Fourier modes, u at three azimuths with TMS/IMS):
+    gas_absorption_profile then simulate_allsky in float32 with the counts
+    set to 0 just before and read just after, the median of `reps` calls,
+    a profiled call; float32 against the float64 plain route on the same
+    inputs on every SOLAR_EVERY-th frequency (flux_up 3e-3, u0 5e-3, u
+    5e-3 of scale), for the scene as built (whose gas is opaque above the
+    cloud, so that the beam adds nothing) and without its gas, where the
+    beam's part of u0 and the TMS/IMS corrections are required to show;
+    the differentiable route on every SOLAR_DIFF_EVERY-th frequency
+    without the gas against the same reference; the beam instance of
+    stage 1 timed at this shape (entry, phase_disort's kernel line, gets
+    its ms, bound and launches) and held against its plain version there
+    without the gas, in float64 (2e-5) and float32 (1e-4), two float32
+    runs bit-identical; the sun camera of the JAX package's example 12
+    through allsky_observer on the card, with that example's halo checks."""
+    from arts_tpu_torch import gas_absorption_profile, simulate_allsky
+    from arts_tpu_torch._cuda import move
+    from arts_tpu_torch.disort import fused_kernel as FK
+    from arts_tpu_torch.disort.solver import solve_terms
+    from arts_tpu_torch.fwd_allsky import allsky_input
+    from arts_tpu_torch.scene import build_solar_scene, build_sun_camera
+
+    dt = torch.float32
+    scene, f, kw = build_solar_scene(device=dev, dtype=dt)
+    on = dict(device=dev, dtype=dt)
+
+    def call():
+        return simulate_allsky(scene, f, k_gas=gas_absorption_profile(scene, f, **on), **kw, **on)
+
+    call()  # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_cuda.LAUNCHES)
+    log(f"solar path launches over {reps} calls: {launches}")
+    for name in ("voigt_sum", "disort_stage1_beam", "disort_stage23"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the solar path")
+    require(launches["disort_stage1"] == 0, "the solar path launched stage 1 without its beam")
+    F, Z, nphi = f.shape[0], scene.atm.z.shape[0], len(kw["phis"])
+    require(tuple(out.u.shape) == (F, Z, NQUAD, nphi), f"u shape {tuple(out.u.shape)}")
+    require(all(bool(torch.isfinite(x).all()) for x in (out.flux_up, out.u0, out.u)),
+            "non-finite solar output")
+    med = float(np.median(times))
+    log(f"solar path, float32, {F} freqs x {Z} levels x {scene.cat.n_lines} lines, {NQUAD} "
+        f"streams, {kw['nfourier']} Fourier modes, {nphi} azimuths with TMS/IMS: median "
+        f"{med:.2f} ms of {reps} ({F / med * 1e3:.1f} points/s); calls "
+        f"{[round(t, 3) for t in times]} ms")
+    log_profile("solar call", call, 12)
+
+    # float32 against the float64 plain route on the same inputs, every
+    # SOLAR_EVERY-th frequency, for the scene as built and for it without
+    # its gas.  The bench's gas is opaque above the cloud (optical depth
+    # 400 or more at every frequency), so there the beam reaches no
+    # scattering layer and adds nothing; without the gas the sun lights
+    # the cloud, and the beam's part of u0 and the TMS/IMS corrections show
+    sub = slice(None, None, SOLAR_EVERY)
+    scene64, f64 = move(scene, dev, torch.float64), f[sub].double()
+    kw64 = dict(device=dev, dtype=torch.float64, plain=True)
+    nogas = torch.zeros((F, Z), dtype=dt, device=dev)
+    cases = (("bench gas", out, gas_absorption_profile(scene64, f64, **kw64)),
+             ("no gas", simulate_allsky(scene, f, k_gas=nogas, **kw, **on),
+              nogas[sub].double()))
+    for what, got, k64 in cases:
+        t0 = time.perf_counter()
+        ref = simulate_allsky(scene64, f64, k_gas=k64, **kw, **kw64)
+        torch.cuda.synchronize()
+        log(f"solar path ({what}): float64 plain route on {f64.shape[0]} frequencies "
+            f"{time.perf_counter() - t0:.1f} s")
+        for key, lim in (("flux_up", 3e-3), ("u0", 5e-3), ("u", 5e-3)):
+            r = rel(getattr(got, key)[sub], getattr(ref, key))
+            log(f"solar path ({what}) float32 kernels vs float64 plain route (same inputs), "
+                f"{key}: {r:.3e} of scale (limit {lim})")
+            require(r <= lim, f"solar ({what}) {key} {r:.3e} > {lim}")
+        dark = simulate_allsky(scene64, f64, k_gas=k64, **dict(kw, fbeam=0.0), **kw64).u0
+        raw = simulate_allsky(scene64, f64, k_gas=k64, **dict(kw, intensity_correction=False),
+                              **kw64).u
+        part = float((ref.u0 - dark).abs().max() / ref.u0.abs().max())
+        du = float((ref.u - raw).abs().max() / ref.u.abs().max())
+        log(f"solar path ({what}), float64: the beam's part of u0 {part:.3e} of its scale, the "
+            f"TMS/IMS corrections' of u {du:.3e}")
+        if what == "no gas":
+            require(part >= 0.5 and du > 0.0, f"solar path ({what}): the beam's part {part:.3e} "
+                    f"or the corrections {du:.3e} do not show")
+            lit = ref
+
+    # the differentiable route (torch.linalg.solve for the beam, the eigh
+    # kernel) on a subset of the sun-lit cloud without gas, float32,
+    # against the same reference
+    step = SOLAR_DIFF_EVERY // SOLAR_EVERY
+    fd = f[::SOLAR_DIFF_EVERY]
+    diff = simulate_allsky(scene, fd, k_gas=nogas[::SOLAR_DIFF_EVERY], fast_linalg=False,
+                           **kw, **on)
+    for key, lim in (("flux_up", 3e-3), ("u0", 5e-3), ("u", 5e-3)):
+        r = rel(getattr(diff, key), getattr(lit, key)[::step])
+        log(f"differentiable route (no gas) float32 vs float64 plain route, {fd.shape[0]} "
+            f"frequencies, {key}: {r:.3e} of scale (limit {lim})")
+        require(r <= lim, f"differentiable solar {key} {r:.3e} > {lim}")
+    del cases, diff, lit, nogas
+    torch.cuda.empty_cache()
+
+    # the beam instance at this shape
+    k = gas_absorption_profile(scene, f, **on)
+    inp = allsky_input(scene, f, k, nleg=kw["nleg"], fbeam=kw["fbeam"])
+    t = solve_terms(inp, NQUAD, kw["nfourier"], mu0=kw["mu0"], nleg=kw["nleg"])
+    s1 = FK.stage1_inputs(t["leg_scaled"], t["omega_p"], t["dtau_p"], t["tb0"], t["tb1"],
+                          lam=t["lam"], sign=t["sign"], mu=t["mu"], w=t["w"])
+    beam = FK.beam_inputs(t["qp"], t["qm"], t["ebea"], t["mu0"])
+    del k, inp, t
+    L, nn, B = s1[0].shape
+    n = math.isqrt(nn)
+    ms = cuda_ms(lambda: FK.stage1(*s1, 6, beam), 10)
+    ms_thermal = cuda_ms(lambda: FK.stage1(*s1, 6), 10)
+    plain = cuda_ms(lambda: FK.stage1_plain(*s1, 6, beam), 1)
+    outs = FK.stage1_plain(*s1, 6, beam)
+    b = bound(B * L * stage1_flops(n, 6, beam=True),
+              nbytes(*s1) + nbytes(*beam[:4]) + nbytes(*outs))
+    del outs
+    log(f"disort_stage1 beam float32 [{L} x {B}] n={n}: {ms:.3f} ms (without the beam "
+        f"{ms_thermal:.3f} ms; plain {plain:.1f} ms), bound {b[0]:.4f} ms ({b[1]})")
+    entry.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                 launches=launches["disort_stage1_beam"], calls=reps)
+    del s1, beam
+    torch.cuda.empty_cache()
+
+    # the beam instance against its plain version at this shape, on the
+    # scene without its gas (where the sun reaches the cloud): all seven
+    # outputs at float64 2e-5 and float32 1e-4 of each output's scale (G+-
+    # also at phase_disort's floor), two float32 runs bit-identical
+    for dtc, rtol, floor, sw in ((torch.float64, 2e-5, 1e-13, 8), (torch.float32, 1e-4, 1e-6, 6)):
+        sc, fc = move((scene, f), dev, dtc)
+        inp = allsky_input(sc, fc, torch.zeros((F, Z), dtype=dtc, device=dev), nleg=kw["nleg"],
+                           fbeam=kw["fbeam"])
+        t = solve_terms(inp, NQUAD, kw["nfourier"], mu0=kw["mu0"], nleg=kw["nleg"])
+        s1 = FK.stage1_inputs(t["leg_scaled"], t["omega_p"], t["dtau_p"], t["tb0"], t["tb1"],
+                              lam=t["lam"], sign=t["sign"], mu=t["mu"], w=t["w"])
+        beam = FK.beam_inputs(t["qp"], t["qm"], t["ebea"], t["mu0"])
+        del inp, t
+        what = f"disort_stage1 beam {str(dtc)[6:]} solar shape (no gas) [{L} x {B}]"
+        got = FK.stage1(*s1, sw, beam)
+        err = hold_stage1(got, FK.stage1_plain(*s1, sw, beam), rtol, floor, what)
+        if dtc == torch.float32:
+            entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), err)
+            require(all(torch.equal(x, y) for x, y in zip(got, FK.stage1(*s1, sw, beam))),
+                    f"{what}: two runs differ")
+            log(f"{what}: two runs bit-identical")
+        del s1, beam, got
+        torch.cuda.empty_cache()
+
+    # the JAX package's examples/12_sun_camera_allsky.py through the port,
+    # float64 on the card: the forward-scattering halo, brightest toward
+    # the sun's azimuth and falling off away from it
+    from arts_tpu_torch.sensor.measurement import _simulate_batch, stack_azimuths, stack_paths
+
+    cam = {d: build_sun_camera(device=d, dtype=torch.float64) for d in (dev, torch.device("cpu"))}
+    I = {}
+    for d, (sc, fc, paths, obs) in cam.items():
+        alts, drs, zas, _ = stack_paths(paths, d, torch.float64)
+        I[d] = _simulate_batch(sc, fc, alts, drs, zas, ["surface"] * len(paths), observer=obs,
+                               aas=stack_azimuths(paths, d, torch.float64))[:, 0].cpu()
+    v = I[dev]
+    log(f"sun camera (example 12), card: I over azimuths 0..180 {[f'{x:.4e}' for x in v]}; "
+        f"sunward/antisolar {float(v[0] / v[-1]):.3f}; card vs CPU {rel(v, I[torch.device('cpu')]):.3e}")
+    require(bool(v[0] == v.max()) and bool(v[0] > 2.0 * v[-1]) and bool((v.diff() < 0).all()),
+            "sun camera: no forward-scattering halo")
+    require(rel(v, I[torch.device("cpu")]) <= 1e-10, "sun camera: card vs CPU beyond 1e-10")
+    return launches
 
 
 # the oblique field of tests/test_zeeman.py:123, under which all 7
@@ -1708,7 +1945,7 @@ def main():
     scenes = {dt: build_scene(device=dev, dtype=dt) for dt in (torch.float64, torch.float32)}
     kernels = [phase_voigt(scenes, dev)] + phase_disort(scenes, dev)
     launches = phase_main_path(scenes, dev, _cuda)
-    for k in kernels:
+    for k in kernels[:3]:
         k["launches"] = launches[k["name"]]
     hs = {dt: bench_hsym(*scenes[dt], dev, dt) for dt in scenes}
     eigh = phase_eigh(hs, dev)
@@ -1716,6 +1953,9 @@ def main():
     del hs
     phase_differentiable_allsky(scenes, dev, _cuda)
     del scenes
+    torch.cuda.empty_cache()
+    phase_solar_allsky(dev, _cuda, kernels[3])
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     zin = {dt: build_zeeman_inputs(device=dev, dtype=dt) for dt in (torch.float64, torch.float32)}
     log(f"Zeeman inputs built in {time.perf_counter() - t0:.1f} s")

@@ -31,7 +31,8 @@ def test_voigt_kernel_matches_plain(dev, dtype, rtol, atol):
 
     scene, f = build_scene(n_lev=8, n_freq=1024, n_lines=512, device=dev, dtype=dtype)
     pts = scene.atm.at(scene.atm.z.flip(0))
-    kin, _ = V.voigt_inputs(*voigt_sum_args(f, scene.cat, scene.pf, pts.t, pts.p, pts.vmr))
+    args = voigt_sum_args(f, scene.cat, scene.pf, pts.t, pts.p, pts.vmr)
+    kin, _ = V.voigt_inputs(*args[:9], res=args[9])
     got = V.voigt_kernel(*kin).double()
     want = V.voigt_kernel_plain(*kin).double()
     scale = want.abs().max()
@@ -458,6 +459,42 @@ def test_stage1_kernel_float32_runs_bit_identical(dev):
     eig = ins[:4] + (ins[6], 6)
     for a, b in zip(EK.eigen_lanes(*eig), EK.eigen_lanes(*eig)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mu0", [0.15, 0.5, 0.92])
+@pytest.mark.parametrize("B, L", [(7, 1), (300, 7)])
+@pytest.mark.parametrize("nquad", [8, 16])
+@pytest.mark.parametrize("dtype, rtol, floor", [(torch.float64, 2e-5, 1e-13),
+                                                (torch.float32, 1e-4, 1e-6)])
+def test_stage1_beam_kernel_matches_plain(dev, dtype, rtol, floor, nquad, B, L, mu0):
+    """The beam instance of the stage 1 kernel against the plain version's
+    beam branch on random scattering problems with random beam sources
+    (scene.build_beam_case), the sun at three zenith cosines: all seven
+    outputs at chip_smoke's tolerances; one launch, counted as the beam
+    instance's."""
+    from arts_tpu_torch import _cuda
+    from arts_tpu_torch.disort import fused_kernel as FK
+    from arts_tpu_torch.scene import build_beam_case
+
+    ins, beam = build_beam_case(nquad, B, L, seed=10 * B + L, mu0=mu0, device=dev, dtype=dtype)
+    sweeps = 8 if dtype == torch.float64 else 6
+    _cuda.reset_launches()
+    got = FK.stage1(*ins, sweeps, beam)
+    assert _cuda.LAUNCHES["disort_stage1_beam"] == 1 and _cuda.LAUNCHES["disort_stage1"] == 0
+    _hold_stage1(got, FK.stage1_plain(*ins, sweeps, beam), rtol, floor)
+
+
+def test_stage1_beam_kernel_float32_runs_bit_identical(dev):
+    """Two float32 runs of the beam instance give the same bits; a beam
+    from mu0 <= 0 raises."""
+    from arts_tpu_torch.disort import fused_kernel as FK
+    from arts_tpu_torch.scene import build_beam_case
+
+    ins, beam = build_beam_case(16, 300, 7, seed=5, mu0=0.5, device=dev, dtype=torch.float32)
+    for a, b in zip(FK.stage1(*ins, 6, beam), FK.stage1(*ins, 6, beam)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="mu0"):
+        FK.stage1(*ins, 6, beam[:4] + (0.0,))
 
 
 def _clearsky_case(dev, dtype):

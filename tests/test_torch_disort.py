@@ -153,10 +153,3 @@ def test_build_stage1_case_is_a_scattering_case():
     assert bool(torch.isfinite(gp).all())
     assert float((gp.abs().amax(1) / gm.abs().amax(1)).min()) >= 1e-3
 
-
-def test_beam_and_brdf_are_not_ported():
-    inp = _port_input(_inputs(F=1, L=3))
-    with pytest.raises(NotImplementedError):
-        disort(inp, nquad=8, mu0=0.5, **CPU64)
-    with pytest.raises(NotImplementedError):
-        disort(inp, nquad=8, brdf=object(), **CPU64)

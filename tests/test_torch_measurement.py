@@ -325,8 +325,9 @@ def test_allsky_observer_matches_jax(scenes):
         got = O.allsky_observer(**kw, k_gas=T(k))(psc, T(f), None, None, T(za), None)
         assert got.shape == (5, f.shape[0])
         close(got.numpy(), np.asarray(wants[level]))
-    with pytest.raises(NotImplementedError):
-        O.allsky_observer(nquad=4, fbeam=1.0)
+    O.allsky_observer(nquad=4, fbeam=1.0)
+    with pytest.raises(ValueError, match="level"):
+        O.allsky_observer(nquad=4, level="limb")
 
 
 def test_clearsky_measurement_case_on_the_cpu():

@@ -97,6 +97,8 @@ def _entry_points():
     from arts_tpu_torch.lbl.nlte import nlte_fit_profile
     from arts_tpu_torch.lbl.zeeman import zeeman_propmat_views
     from arts_tpu_torch.scene import build_zeeman_nlte_scene
+    from arts_tpu_torch.disort.brdf import hapke_brdf, surface_brdf_modes
+    from arts_tpu_torch.scene import build_beam_case, build_solar_scene, build_sun_camera
 
     lines = lambda: read_par(synth_par_rows(4), ["H2O", "O2"])
     zrows = lambda: synth_par_rows(4)
@@ -136,6 +138,11 @@ def _entry_points():
         "simulate_allsky": lambda o: simulate_allsky(o[0], o[1]),
         "disort": lambda o: disort(o[3]),
         "disort_differentiable": lambda o: disort(o[3], fast_linalg=False),
+        "disort_beam": lambda o: disort(o[3], mu0=0.5),
+        "surface_brdf_modes": lambda o: surface_brdf_modes(hapke_brdf, 4, 2, mu0=0.5),
+        "build_solar_scene": lambda o: build_solar_scene(n_lev=4, n_freq=8, n_lines=4),
+        "build_sun_camera": lambda o: build_sun_camera(),
+        "build_beam_case": lambda o: build_beam_case(4, 3, 2, seed=0, mu0=0.5),
         "simulate_allsky_differentiable": lambda o: simulate_allsky(o[0], o[1], fast_linalg=False),
         "eigh_jacobi": lambda o: eigh_jacobi(torch.eye(3, dtype=torch.float64)),
         "fused_eigen": lambda o: fused_eigen(torch.zeros(2, 4, 4), torch.zeros(2, 4, 4), 0.5, 1.0,

@@ -12,10 +12,11 @@ with g++ against CPU stand-ins for the CUDA built-ins they use
 approximations of csrc/jacobi.cuh become the IEEE operations) and run
 block by block.
 
-* disort: stage1_kernel and fused_eigen_kernel (and the device code they
-  call) on scene.build_stage1_case problems: n = 8 and 4, float64 and
-  float32, 37 lanes x 2 layers, 5 x 1 and 9 x 7, against stage1_plain /
-  eigen_lanes_plain, each output's largest difference as a share of its
+* disort: stage1_kernel (both instances) and fused_eigen_kernel (and the
+  device code they call) on scene.build_stage1_case problems: n = 8 and 4,
+  float64 and float32, 37 lanes x 2 layers, 5 x 1 and 9 x 7 (the beam
+  instance on build_beam_case's sources for them, the sun at mu0 = 0.5,
+  0.92 and 0.15), against stage1_plain / eigen_lanes_plain, each output's largest difference as a share of its
   scale (limits: the chip checks' tolerances, float64 2e-5, float32 1e-4).
 * eigh: eigh_team_kernel for every n = 1..16, float64 and float32, on
   random symmetric batches of B = 70 (not a multiple of any instance's
@@ -58,7 +59,8 @@ from arts_tpu_torch.disort import eigen_kernel as EK  # noqa: E402
 from arts_tpu_torch.disort import fused_kernel as FK  # noqa: E402
 from arts_tpu_torch.ops import eigh_jacobi as E  # noqa: E402
 from arts_tpu_torch.ops import zeeman_mp_kernel as MP  # noqa: E402
-from arts_tpu_torch.scene import build_stage1_case, build_zeeman_inputs, build_zeeman_mp_case  # noqa: E402
+from arts_tpu_torch.scene import (  # noqa: E402
+    build_beam_case, build_stage1_case, build_zeeman_inputs, build_zeeman_mp_case)
 
 HERE = pathlib.Path(__file__).resolve().parent / "eigen_emu"
 CSRC = ROOT / "arts_tpu_torch" / "csrc"
@@ -70,6 +72,7 @@ PTX = {
     'asm("rsqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(u));': "r = 1.0f / sqrtf(u);",
 }
 CASES = ((37, 2), (5, 1), (9, 7))
+BEAM_MU0 = (0.5, 0.92, 0.15)  # the beam instance's sun, one per case
 
 
 def sources(src, d, end, main):
@@ -99,18 +102,24 @@ def build(src, d, end, main):
     return exe
 
 
-def run(exe, mode, ins, sweeps, d):
-    """The kernel's outputs on the stage 1 inputs `ins` (CPU tensors)."""
+def run(exe, mode, ins, sweeps, d, beam=None):
+    """The kernel's outputs on the stage 1 inputs `ins` (CPU tensors), with
+    mode "beam" on beam = (qp, qm, ebt, ebb, mu0) too."""
     for name, x in zip(("pp", "pm", "om", "dtau", "tb0", "tb1", "qtab"), ins):
         x.numpy().tofile(d / f"{name}.bin")
+    extra = []
+    if beam is not None:
+        for name, x in zip(("qp", "qm", "ebt", "ebb"), beam):
+            x.numpy().tofile(d / f"{name}.bin")
+        extra = [repr(float(beam[4]))]
     L, nn, B = ins[0].shape
     n = int(round(nn**0.5))
     f32 = ins[0].dtype == torch.float32
     subprocess.run([str(exe), mode, "f32" if f32 else "f64", str(n), str(L), str(B),
-                    str(sweeps), str(d)], check=True)
+                    str(sweeps), str(d)] + extra, check=True)
     vec, mat = (L, n, B), (L, nn, B)
     names = ((("ek", vec), ("gp", mat), ("gm", mat), ("ut", vec), ("vt", vec), ("ub", vec),
-              ("vb", vec)) if mode == "stage1" else
+              ("vb", vec)) if mode != "eigen" else
              (("k", vec), ("ek", vec), ("gp", mat), ("gm", mat)))
     dt = np.float32 if f32 else np.float64
     return tuple(torch.from_numpy(np.fromfile(d / f"{nm}.out", dt).reshape(shape))
@@ -124,10 +133,14 @@ def disort(src, d):
     worst = 0.0
     for nquad in (16, 8):
         for dt, sweeps, tol in ((torch.float64, 8, 2e-5), (torch.float32, 6, 1e-4)):
-            for B, L in CASES:
+            for (B, L), mu0 in zip(CASES, BEAM_MU0):
                 ins = build_stage1_case(nquad, B, L, seed=B + L, device="cpu", dtype=dt)
+                _, beam = build_beam_case(nquad, B, L, seed=B + L, mu0=mu0, device="cpu",
+                                          dtype=dt)
                 pairs = (("stage 1", run(exe, "stage1", ins, sweeps, d),
                           FK.stage1_plain(*ins, sweeps)),
+                         (f"stage 1 beam mu0={mu0}", run(exe, "beam", ins, sweeps, d, beam),
+                          FK.stage1_plain(*ins, sweeps, beam)),
                          ("fused_eigen", run(exe, "eigen", ins, sweeps, d),
                           EK.eigen_lanes_plain(*ins[:4], ins[6], sweeps)))
                 for what, got, want in pairs:

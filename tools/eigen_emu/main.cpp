@@ -1,8 +1,9 @@
-// Runs stage1_kernel or fused_eigen_kernel of the translation unit it is
-// appended to (tools/eigen_emu.py) on the CPU, one block at a time, one
-// std::thread per CUDA thread:
-//   emu <stage1|eigen> <f32|f64> n L B sweeps dir
-// reads dir/{pp,pm,om,dtau,tb0,tb1,qtab}.bin and writes dir/*.out.
+// Runs stage1_kernel (its beam instance with "beam") or fused_eigen_kernel
+// of the translation unit it is appended to (tools/eigen_emu.py) on the
+// CPU, one block at a time, one std::thread per CUDA thread:
+//   emu <stage1|beam|eigen> <f32|f64> n L B sweeps dir [mu0]
+// reads dir/{pp,pm,om,dtau,tb0,tb1,qtab}.bin (and qp, qm, ebt, ebb) and
+// writes dir/*.out.
 #include <cstdio>
 #include <cstdlib>
 #include <string>
@@ -26,12 +27,17 @@ void wr(const std::string& p, const std::vector<T>& v) {
   fclose(f);
 }
 template <typename T, int N>
-void run(bool s1, int L, int B, int sw, const std::string& d) {
+void run(bool s1, bool beam, int L, int B, int sw, double mu0, const std::string& d) {
   using C = E1<T, N>;
   auto pp = rd<T>(d + "/pp.bin"), pm = rd<T>(d + "/pm.bin"), om = rd<T>(d + "/om.bin"),
        dtau = rd<T>(d + "/dtau.bin"), qtab = rd<T>(d + "/qtab.bin");
   std::vector<T> tb0, tb1;
   if (s1) { tb0 = rd<T>(d + "/tb0.bin"); tb1 = rd<T>(d + "/tb1.bin"); }
+  std::vector<T> qp, qm, ebt, ebb;
+  if (beam) {
+    qp = rd<T>(d + "/qp.bin"); qm = rd<T>(d + "/qm.bin");
+    ebt = rd<T>(d + "/ebt.bin"); ebb = rd<T>(d + "/ebb.bin");
+  }
   const size_t nv = size_t(L) * N * B, nm = size_t(L) * N * N * B;
   std::vector<T> kk(nv, T(-999)), ek(nv, T(-999)), gp(nm, T(-999)), gm(nm, T(-999)), ut(nv, T(-999)),
       vt(nv, T(-999)), ub(nv, T(-999)), vb(nv, T(-999));
@@ -47,10 +53,16 @@ void run(bool s1, int L, int B, int sw, const std::string& d) {
         th.emplace_back([&, t] {
           threadIdx = dim3(t);
           blockIdx = dim3(bx, by);
-          if (s1)
-            stage1_kernel<T, N>(pp.data(), pm.data(), om.data(), dtau.data(), tb0.data(), tb1.data(),
-                                qtab.data(), ek.data(), gp.data(), gm.data(), ut.data(), vt.data(),
-                                ub.data(), vb.data(), B, sw);
+          if (beam)
+            stage1_kernel<T, N, true>(pp.data(), pm.data(), om.data(), dtau.data(), tb0.data(),
+                                      tb1.data(), qtab.data(), ek.data(), gp.data(), gm.data(),
+                                      ut.data(), vt.data(), ub.data(), vb.data(), B, sw, qp.data(),
+                                      qm.data(), ebt.data(), ebb.data(), T(mu0));
+          else if (s1)
+            stage1_kernel<T, N, false>(pp.data(), pm.data(), om.data(), dtau.data(), tb0.data(),
+                                       tb1.data(), qtab.data(), ek.data(), gp.data(), gm.data(),
+                                       ut.data(), vt.data(), ub.data(), vb.data(), B, sw, nullptr,
+                                       nullptr, nullptr, nullptr, T(0));
           else
             fused_eigen_kernel<T, N>(pp.data(), pm.data(), om.data(), dtau.data(), qtab.data(),
                                      kk.data(), ek.data(), gp.data(), gm.data(), B, sw);
@@ -61,9 +73,17 @@ void run(bool s1, int L, int B, int sw, const std::string& d) {
   wr(d + "/ut.out", ut); wr(d + "/vt.out", vt); wr(d + "/ub.out", ub); wr(d + "/vb.out", vb);
 }
 int main(int argc, char** argv) {
-  const bool s1 = std::string(argv[1]) == "stage1", f32 = std::string(argv[2]) == "f32";
+  const std::string mode = argv[1];
+  const bool beam = mode == "beam", s1 = beam || mode == "stage1";
+  const bool f32 = std::string(argv[2]) == "f32";
   const int n = atoi(argv[3]), L = atoi(argv[4]), B = atoi(argv[5]), sw = atoi(argv[6]);
   const std::string d = argv[7];
-  if (f32) { if (n == 8) run<float, 8>(s1, L, B, sw, d); else run<float, 4>(s1, L, B, sw, d); }
-  else { if (n == 8) run<double, 8>(s1, L, B, sw, d); else run<double, 4>(s1, L, B, sw, d); }
+  const double mu0 = beam ? atof(argv[8]) : 0.0;
+  if (f32) {
+    if (n == 8) run<float, 8>(s1, beam, L, B, sw, mu0, d);
+    else run<float, 4>(s1, beam, L, B, sw, mu0, d);
+  } else {
+    if (n == 8) run<double, 8>(s1, beam, L, B, sw, mu0, d);
+    else run<double, 4>(s1, beam, L, B, sw, mu0, d);
+  }
 }

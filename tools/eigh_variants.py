@@ -25,10 +25,9 @@ the sweeps).  Cases: float32 n = 8 on the bench scene's Hsym batch
 variant's ptxas lines for the eigh kernels and one line per case and
 library: ms, and the bound (chip_smoke.jacobi_flops over 67 TFLOP/s).
 
-With --parent it also compiles the parent's and this tree's
-csrc/disort_fused.cu to cubins and compares the machine code (cuobjdump
--sass) of every stage1_kernel and fused_eigen_kernel instance: the eigen
-core moved into csrc/jacobi.cuh must leave them unchanged.  Exits non-zero
+With --parent it also compares the machine code of the parent's and this
+tree's csrc/disort_fused.cu kernels (tools/sass_diff.py): the eigen core
+moved into csrc/jacobi.cuh must leave them unchanged.  Exits non-zero
 if a library does not build or does not match, or no card is present.
 """
 
@@ -49,6 +48,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from arts_tpu_torch import _cuda  # noqa: E402
 from arts_tpu_torch.ops import eigh_jacobi as E  # noqa: E402
+import sass_diff  # noqa: E402
 
 TARGET = "constexpr int kColValues = sizeof(T) == 4 ? 32 : 16;"
 EXACT = "constexpr bool kExact = sizeof(T) == 4 && N >= 10;"
@@ -128,48 +128,6 @@ def load(procs):
     return out
 
 
-def sass_functions(cubin, cuobjdump):
-    """{function name: its SASS text} of a cubin."""
-    text = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
-                          text=True, check=True).stdout
-    # the anonymous namespace's name carries a hash of the source
-    text = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_", text)
-    funcs, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = []
-        elif name:
-            funcs[name].append(line.rstrip())
-    return {k: "\n".join(v) for k, v in funcs.items()}
-
-
-def compare_eigen_stage(parent, root):
-    """Whether the machine code of every stage1_kernel / fused_eigen_kernel
-    instance is the parent's."""
-    nvcc = _cuda._nvcc()
-    cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
-    if not cuobjdump.exists():
-        print(f"  {cuobjdump} not found: machine code not compared", flush=True)
-        return False
-    flags = [f for f in _cuda.NVCC_FLAGS if f not in ("-Xptxas", "-v", "-Xcompiler", "-fPIC")]
-    cubins = {}
-    for tag, csrc in (("parent", parent / "arts_tpu_torch" / "csrc"), ("tree", _cuda.CSRC)):
-        out = root / f"disort_{tag}.cubin"
-        subprocess.run([nvcc, *flags, "-cubin", "-I", str(csrc), str(csrc / "disort_fused.cu"),
-                        "-o", str(out)], check=True)
-        cubins[tag] = sass_functions(out, cuobjdump)
-    names = sorted(k for k in cubins["parent"] if "stage1_kernel" in k or "fused_eigen_kernel" in k)
-    same = [k for k in names if cubins["parent"][k] == cubins["tree"].get(k)]
-    for k in names:
-        a, b = cubins["parent"][k].splitlines(), cubins["tree"].get(k, "").splitlines()
-        diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
-        print(f"  {k}: {'same machine code' if k in same else f'DIFFERS in {diff} lines'} "
-              f"({len(a)} lines)", flush=True)
-    return bool(names) and len(same) == len(names)
-
-
 def cases(dev):
     """[(label, A [B, n, n] contiguous)]."""
     from arts_tpu_torch.scene import build_scene
@@ -196,7 +154,7 @@ def main():
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD) as tmp:
         root = pathlib.Path(tmp)
         procs = start_builds(root, args.parent)
-        same_code = compare_eigen_stage(args.parent, root) if args.parent else True
+        same_code = sass_diff.compare(args.parent) if args.parent else True
         work = cases(dev)
         libs = load(procs)
         stream = lambda: torch.cuda.current_stream().cuda_stream
