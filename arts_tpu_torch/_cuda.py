@@ -159,6 +159,8 @@ _SIGNATURES = {
     # pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt, ub, vb,
     # n, L, B, sweeps, qp, qm, ebt, ebb (null without the beam), mu0, stream
     "disort_stage1": [_P] * 14 + [_I] * 4 + [_P] * 4 + [ctypes.c_double, _P],
+    # n, beam, blocks per SM (out), dynamic shared memory bytes (out)
+    "disort_stage1_occupancy": [_I, _I, _P, _P],
     # gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, S, utop, vtop, ubot, vbot,
     # n, L, B, stream
     "disort_stage23": [_P] * 14 + [_I] * 3 + [_P],

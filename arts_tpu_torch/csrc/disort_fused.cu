@@ -27,7 +27,15 @@
 // each thread holds the columns of M of two pairs of each round and two
 // rows of V; every round moves the rotation angles and two columns of M
 // between the threads by shuffle (team_sweeps).  Writes Ek, G+-, and the
-// particular radiances (stage 1) or k (fused_eigen).
+// particular radiances (stage 1) or k (fused_eigen).  Stage 1's beam
+// instance first forms AmB, exactly rounded, into the problem's X tile and
+// solves the beam's system from the staged pp/pm before H1/H2 overwrite
+// them (beam_rows: every entry of ApB formed once, AmB read from the
+// tile); z+- and the layer's attenuation then wait in the X tile, so that
+// nothing of the beam is held in registers across the thermal solve.  At
+// n = 8 in float32 that takes 128 registers against the thermal
+// instance's 96 (ptxas, sm_90a): both fit the 4 blocks per SM that the
+// shared memory allows.
 //
 // Stages 2+3, kTPL = 8 threads per lane (four lanes per warp), kLanes =
 // 16 lanes per block: the TPU grid walked the layers in order with W
@@ -72,6 +80,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "async.cuh"
 #include "jacobi.cuh"
 
@@ -98,10 +108,10 @@ constexpr bool kSeatPerThread = false;  // n threads per problem, one column eac
 constexpr bool kTilesShared = true;     // H1/H2 in shared tiles, or from pp/pm at each use
 
 // Layout of the eigen kernels, in elements of T: the quadrature table, then
-// per problem three n x n tiles (H1, later Lc; H2; X: M, later V; without
-// kTilesShared no H2 tile and H1's only for Lc), the problem's stride padded
-// to TEAM (mod 32) 4-byte words so that the same entry of the warp's
-// problems falls in distinct banks.
+// per problem three n x n tiles (pp, H1, later Lc; pm, H2; X: AmB under a
+// beam, M, later V; without kTilesShared no H2 tile and H1's only for Lc),
+// the problem's stride padded to TEAM (mod 32) 4-byte words so that the
+// same entry of the warp's problems falls in distinct banks.
 template <typename T, int N>
 struct E1 {
   static constexpr int NN = N * N, NP = N / 2;
@@ -217,12 +227,100 @@ __device__ __forceinline__ void h12(T c, const T* ff, const T* dg, int k, T* h1,
   }
 }
 
+// entry e of ApB (plus false) or AmB from pp/pm's entries u, v: sc (F (c
+// (Pp -/+ Pm) - diag(1/w)) F), every product and difference rounded on its
+// own, as the plain version forms sc * H1/H2
+template <typename T, int N>
+__device__ __forceinline__ T ab_rn(T u, T v, bool plus, int e, T c, const T* ff, const T* dg,
+                                   const T* sc) {
+  using jacobi::add_rn;
+  using jacobi::mul_rn;
+  using jacobi::sub_rn;
+  const T d = e / N == e % N ? dg[e / N] : T(0);
+  return mul_rn(sc[e], sub_rn(mul_rn(mul_rn(ff[e], c), plus ? add_rn(u, v) : sub_rn(u, v)), d));
+}
+
+// The beam's particular solution (all modes) of one problem on its team:
+// (ApB AmB - I/mu0^2) s = ApB (q+ + q-)/mu - (q+ - q-)/(mu mu0), d = -mu0
+// (AmB s - (q+ + q-)/mu), z+- = (s +- d)/2; thread k forms rows r = k +
+// TEAM m of the system and of z+-.  apb(e) gives entry e of ApB, amb is
+// AmB in the problem's X tile.  The system squares the conditioning of ApB
+// and AmB (and is singular where k mu0 = 1), so every product and sum
+// rounds on its own, in the plain version's order (_beam_plain): the
+// kernel then carries the plain version's rounding, not an amplified
+// difference from it.  The sums over t run outermost: step t forms (q+ +
+// q-)/mu of row t and column t of the thread's rows of ApB, reads row t of
+// AmB an entry at a time, and adds the products to the thread's rows of
+// the system and of the right-hand side, so that every AmB and ApB entry is
+// read or formed once and only those rows are held.
+template <typename T, int N, int TEAM, typename ApB>
+__device__ __forceinline__ void beam_rows(ApB apb, const T* amb, const T* imu,
+                                          const T* __restrict__ qp, const T* __restrict__ qm,
+                                          long vec0c, long B, T mu0, int k, T (&zp)[N / TEAM],
+                                          T (&zm)[N / TEAM]) {
+  using jacobi::add_rn;
+  using jacobi::mul_rn;
+  using jacobi::sub_rn;
+  constexpr int R = N / TEAM;
+  const T imu0 = T(1) / mu0;
+  const T imu02 = T(1) / mul_rn(mu0, mu0);
+  T Bs[R][1], Sv[N][1], Pr[R][N], pr[R];
+  // step t of the sums (FIRST: t = 0, which starts them); a loop, not
+  // unrolled, so that no step's loads are hoisted into another's registers
+  auto step = [&](int t, auto first) {
+    constexpr bool FIRST = decltype(first)::value;
+    const T sp = mul_rn(add_rn(qp[vec0c + static_cast<long>(t) * B],
+                               qm[vec0c + static_cast<long>(t) * B]), imu[t]);
+    T a[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      a[m] = apb((k + TEAM * m) * N + t);
+      Bs[m][0] = FIRST ? mul_rn(a[m], sp) : add_rn(Bs[m][0], mul_rn(a[m], sp));
+    }
+#pragma unroll
+    for (int c2 = 0; c2 < N; ++c2) {
+      const T x = amb[t * N + c2];
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        Pr[m][c2] = FIRST ? mul_rn(a[m], x) : add_rn(Pr[m][c2], mul_rn(a[m], x));
+    }
+  };
+  step(0, std::true_type{});
+#pragma unroll 1
+  for (int t = 1; t < N; ++t) step(t, std::false_type{});
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int r = k + TEAM * m;
+    const T u = qp[vec0c + static_cast<long>(r) * B];
+    const T v = qm[vec0c + static_cast<long>(r) * B];
+    Bs[m][0] = sub_rn(Bs[m][0], mul_rn(mul_rn(sub_rn(u, v), imu[r]), imu0));
+    pr[m] = mul_rn(add_rn(u, v), imu[r]);
+#pragma unroll
+    for (int c2 = 0; c2 < N; ++c2)
+      if (c2 == r) Pr[m][c2] = sub_rn(Pr[m][c2], imu02);
+  }
+  ge_team<T, N, 1, TEAM, true>(Pr, Bs, Sv, k);
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int r = k + TEAM * m;
+    T s = mul_rn(amb[r * N], Sv[0][0]);
+#pragma unroll
+    for (int t = 1; t < N; ++t) s = add_rn(s, mul_rn(amb[r * N + t], Sv[t][0]));
+    T sr = T(0);
+#pragma unroll
+    for (int t = 0; t < TEAM; ++t)
+      if (t == k) sr = Sv[t + TEAM * m][0];
+    const T d = mul_rn(-mu0, sub_rn(s, pr[m]));
+    zp[m] = mul_rn(T(0.5), add_rn(sr, d));
+    zm[m] = mul_rn(T(0.5), sub_rn(sr, d));
+  }
+}
+
 // One (lane, layer) problem of stage 1 (THERMAL) or of fused_eigen (WRITE_K)
 // on a team of E1::TEAM threads: pp/pm staged and turned into H1/H2 in the
 // problem's tiles, the thermal particular solution (ge_team; thread k
-// stores rows k + TEAM m) and with BEAM the beam's (a third ge_team solve,
-// each thread forming its rows of the system and of z+-, added with the
-// layer's attenuation before the stores), Cholesky of -H1 (every thread; the tile of H1
+// stores rows k + TEAM m) and with BEAM the beam's (beam_rows, before
+// h12; z+- added with the layer's attenuation at the stores), Cholesky of -H1 (every thread; the tile of H1
 // becomes Lc, zero above the diagonal), Hsym = -Lc^T H2 Lc (each thread its
 // columns, the upper part mirrored through the X tile), the team's Jacobi,
 // k = sqrt(max(lambda, 1e-24)), Ek = exp(-k dtau), then V through the X
@@ -268,6 +366,45 @@ __device__ __forceinline__ void eigen_stage(
   const T dt = dtau[one0];
   const T c = T(0.5) * om[one0];
   __syncthreads();  // the quadrature table
+  constexpr int R = N / TEAM;
+  if constexpr (BEAM) {
+    // the beam's particular solution of the team's rows: AmB into the X
+    // tile (free until Hsym), each thread the entries it staged, then the
+    // beam's solve with ApB's rows formed from the staged pp/pm before h12
+    // overwrites them
+    static_assert(2 * N + 2 <= NN, "z+- and the attenuation fit the X tile");
+    const long vec0c = static_cast<long>(l) * N * B + bc;  // loads
+    // entry e of pp, or of pm (of_pm), before h12: the staged tiles, or
+    // device memory
+    auto raw = [&](int e, bool of_pm) -> T {
+      if (kTilesShared) return of_pm ? h2[e] : lt[e];
+      return (of_pm ? pm : pp)[mat0 + static_cast<long>(e) * B];
+    };
+    if (kTilesShared) cp_async_wait<0>();
+#pragma unroll
+    for (int m = 0; m < NN / TEAM; ++m) {
+      const int e = k + TEAM * m;
+      xt[e] = ab_rn<T, N>(raw(e, false), raw(e, true), true, e, c, ff, dg, sc);
+    }
+    __syncwarp();  // the team's AmB and staged pp/pm
+    T zp[R], zm[R];
+    beam_rows<T, N, TEAM>(
+        [&](int e) { return ab_rn<T, N>(raw(e, false), raw(e, true), false, e, c, ff, dg, sc); },
+        xt, imu, qp, qm, vec0c, B, mu0, k, zp, zm);
+    __syncwarp();  // the team has read pp/pm and AmB
+    // z+- of row i at entries i and n + i of the X tile, the layer's
+    // attenuation at its top and bottom at 2n and 2n + 1: they wait there,
+    // not in registers, across the thermal solve
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      xt[k + TEAM * m] = zp[m];
+      xt[N + k + TEAM * m] = zm[m];
+    }
+    if (k == 0) {
+      xt[2 * N] = ebt[one0];
+      xt[2 * N + 1] = ebb[one0];
+    }
+  }
   if (kTilesShared) h12<T, N, TEAM>(c, ff, dg, k, lt, h2);
   __syncwarp();
   // entry e of H2 (plus) or H1: from its tile, or from pp/pm at each use
@@ -283,7 +420,6 @@ __device__ __forceinline__ void eigen_stage(
   if constexpr (THERMAL) {
     // q1 = AmB^-1 tb1/mu, p+r = 2 AmB^-1 tb0/mu (Q), p-r = 2 ApB^-1 q1 (X),
     // with ApB/AmB = sc * H1/H2; thread k stores rows k + TEAM m
-    constexpr int R = N / TEAM;
     const T t1 = tb1[one0];
     const T t0 = tb0[one0];
     T A[R][N], G[R][2], Q[N][2];
@@ -307,84 +443,6 @@ __device__ __forceinline__ void eigen_stage(
         if (t == k) Y[m][0] = Q[t + TEAM * m][0];
     }
     ge_team<T, N, 1, TEAM>(A, Y, X, k);
-    // the beam (all modes): (ApB AmB - I/mu0^2) s = ApB (q+ + q-)/mu -
-    // (q+ - q-)/(mu mu0), d = -mu0 (AmB s - (q+ + q-)/mu), z+- = (s +- d)/2;
-    // thread k forms rows k + TEAM m of the system and of z+-.  The system
-    // squares the conditioning of ApB and AmB (and is singular where k mu0
-    // = 1), so every product and sum rounds on its own, in the plain
-    // version's order, from ApB/AmB formed again from pp/pm the same way:
-    // the kernel then carries the plain version's rounding, not an
-    // amplified difference from it
-    [[maybe_unused]] T zp[R], zm[R], et, eb;
-    if constexpr (BEAM) {
-      using jacobi::add_rn;
-      using jacobi::mul_rn;
-      using jacobi::sub_rn;
-      const long vec0c = static_cast<long>(l) * N * B + bc;  // loads
-      // entry e of ApB (plus false) or AmB: sc * (F (c (Pp -/+ Pm) - diag(1/w)) F)
-      auto AB = [&](int e, bool plus) -> T {
-        const T u = pp[mat0 + static_cast<long>(e) * B];
-        const T v = pm[mat0 + static_cast<long>(e) * B];
-        const T d = e / N == e % N ? dg[e / N] : T(0);
-        const T h = sub_rn(mul_rn(mul_rn(ff[e], c), plus ? add_rn(u, v) : sub_rn(u, v)), d);
-        return mul_rn(sc[e], h);
-      };
-      const T imu0 = T(1) / mu0;
-      const T imu02 = T(1) / mul_rn(mu0, mu0);
-      T spm[N], Bs[R][1], Sv[N][1], Pr[R][N];
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        spm[j] = mul_rn(add_rn(qp[vec0c + static_cast<long>(j) * B],
-                               qm[vec0c + static_cast<long>(j) * B]), imu[j]);
-#pragma unroll
-      for (int m = 0; m < R; ++m) {
-        const int r = k + TEAM * m;
-#pragma unroll
-        for (int j = 0; j < N; ++j) A[m][j] = AB(r * N + j, false);  // ApB's row r
-        T a = mul_rn(A[m][0], spm[0]);
-#pragma unroll
-        for (int j = 1; j < N; ++j) a = add_rn(a, mul_rn(A[m][j], spm[j]));
-        const T dq = sub_rn(qp[vec0c + static_cast<long>(r) * B],
-                            qm[vec0c + static_cast<long>(r) * B]);
-        Bs[m][0] = sub_rn(a, mul_rn(mul_rn(dq, imu[r]), imu0));
-      }
-      // the thread's rows of ApB AmB - I/mu0^2, a column of AmB at a time
-#pragma unroll
-      for (int c2 = 0; c2 < N; ++c2) {
-        T col[N];
-#pragma unroll
-        for (int t = 0; t < N; ++t) col[t] = AB(t * N + c2, true);
-#pragma unroll
-        for (int m = 0; m < R; ++m) {
-          T a = mul_rn(A[m][0], col[0]);
-#pragma unroll
-          for (int t = 1; t < N; ++t) a = add_rn(a, mul_rn(A[m][t], col[t]));
-          Pr[m][c2] = c2 == k + TEAM * m ? sub_rn(a, imu02) : a;
-        }
-      }
-      ge_team<T, N, 1, TEAM, true>(Pr, Bs, Sv, k);
-#pragma unroll
-      for (int m = 0; m < R; ++m) {
-        const int r = k + TEAM * m;
-        T a = mul_rn(AB(r * N, true), Sv[0][0]);
-#pragma unroll
-        for (int t = 1; t < N; ++t) a = add_rn(a, mul_rn(AB(r * N + t, true), Sv[t][0]));
-        // s and (q+ + q-)/mu of row r, selected at compile-time indices
-        T sr = T(0), pr = T(0);
-#pragma unroll
-        for (int t = 0; t < TEAM; ++t) {
-          if (t == k) {
-            sr = Sv[t + TEAM * m][0];
-            pr = spm[t + TEAM * m];
-          }
-        }
-        const T d = mul_rn(-mu0, sub_rn(a, pr));
-        zp[m] = mul_rn(T(0.5), add_rn(sr, d));
-        zm[m] = mul_rn(T(0.5), sub_rn(sr, d));
-      }
-      et = ebt[one0];
-      eb = ebb[one0];
-    }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       if (valid && i % TEAM == k) {
@@ -394,10 +452,13 @@ __device__ __forceinline__ void eigen_stage(
         const T r0 = T(0.5) * (ppr - pmr);
         const T q1d = Q[i][0] * dt;
         if constexpr (BEAM) {
-          ut[vec0 + static_cast<long>(i) * B] = p0 + zp[i / TEAM] * et;
-          vt[vec0 + static_cast<long>(i) * B] = r0 + zm[i / TEAM] * et;
-          ub[vec0 + static_cast<long>(i) * B] = p0 + q1d + zp[i / TEAM] * eb;
-          vb[vec0 + static_cast<long>(i) * B] = r0 + q1d + zm[i / TEAM] * eb;
+          // row i's z+- and the attenuation from the X tile
+          const T zpi = xt[i], zmi = xt[N + i];
+          const T et = xt[2 * N], eb = xt[2 * N + 1];
+          ut[vec0 + static_cast<long>(i) * B] = p0 + zpi * et;
+          vt[vec0 + static_cast<long>(i) * B] = r0 + zmi * et;
+          ub[vec0 + static_cast<long>(i) * B] = p0 + q1d + zpi * eb;
+          vb[vec0 + static_cast<long>(i) * B] = r0 + q1d + zmi * eb;
         } else {
           ut[vec0 + static_cast<long>(i) * B] = p0;
           vt[vec0 + static_cast<long>(i) * B] = r0;
@@ -974,6 +1035,26 @@ int launch_stage1(const void* const* a, void* const* o, int L, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// blocks of stage 1 resident at once on one SM of the current card, and
+// its dynamic shared memory per block
+template <typename T, int N, bool BEAM>
+int occupancy1(int* blocks, int* smem_bytes) {
+  size_t smem;
+  if (const int e = eigen_smem<T, N>(stage1_kernel<T, N, BEAM>, smem)) return e;
+  *smem_bytes = static_cast<int>(smem);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, stage1_kernel<T, N, BEAM>, kThreads1, smem));
+}
+
+template <typename T>
+int occupancy(int n, int beam, int* blocks, int* smem_bytes) {
+  if (n == 8) return beam ? occupancy1<T, 8, true>(blocks, smem_bytes)
+                          : occupancy1<T, 8, false>(blocks, smem_bytes);
+  if (n == 4) return beam ? occupancy1<T, 4, true>(blocks, smem_bytes)
+                          : occupancy1<T, 4, false>(blocks, smem_bytes);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, int N>
 int launch_stage23(const void* const* a, void* const* o, int L, int B,
                    cudaStream_t s) {
@@ -1078,6 +1159,12 @@ extern "C" int disort_stage1_f32(STAGE1_ARGS) {
 extern "C" int disort_stage1_f64(STAGE1_ARGS) {
   return stage1<double>(pp, pm, om, dtau, tb0, tb1, qtab, ek, gp, gm, ut, vt,
                         ub, vb, n, L, B, sweeps, qp, qm, ebt, ebb, mu0, stream);
+}
+extern "C" int disort_stage1_occupancy_f32(int n, int beam, int* blocks, int* smem_bytes) {
+  return occupancy<float>(n, beam, blocks, smem_bytes);
+}
+extern "C" int disort_stage1_occupancy_f64(int n, int beam, int* blocks, int* smem_bytes) {
+  return occupancy<double>(n, beam, blocks, smem_bytes);
 }
 extern "C" int disort_stage23_f32(STAGE23_ARGS) {
   return stage23<float>(gp, gm, ek, rhs, rsurf, ut, vt, ub, vb, S, utop, vtop,

@@ -105,6 +105,23 @@ def stage1(pp, pm, om, dtau, tb0, tb1, qtab, sweeps, beam=None):
     return ek, gp, gm, ut, vt, ub, vb
 
 
+def stage1_occupancy(n, dtype, beam, lib=None):
+    """(blocks resident at once on one SM, dynamic shared memory in bytes
+    per block) of csrc/disort_fused.cu's stage 1 kernel at n streams per
+    hemisphere in dtype (its beam instance under beam), as the CUDA runtime
+    gives them for the current card; lib, a loaded build of that source
+    (default the package's)."""
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    fn = getattr(lib or _cuda.library(), f"disort_stage1_occupancy_{suffix}")
+    fn.argtypes = _cuda._SIGNATURES["disort_stage1_occupancy"]
+    fn.restype = ctypes.c_int
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    rc = fn(n, int(beam), ctypes.byref(blocks), ctypes.byref(smem))
+    if rc:
+        raise RuntimeError(f"disort_stage1_occupancy_{suffix}: CUDA error {rc}")
+    return blocks.value, smem.value
+
+
 def stage1_plain(pp, pm, om, dtau, tb0, tb1, qtab, sweeps, beam=None):
     """The plain PyTorch version of stage1: the same arithmetic, batched
     over all (layer, lane) problems as matrices [L, B, n, n]; the eigen

@@ -99,7 +99,9 @@
    the cloud: only there does the beam reach a scattering layer, and its
    part of u0 and the TMS/IMS corrections must show), and the
    differentiable route (without the gas) on every 64th;
-   times the beam instance of stage 1 at that shape and holds it against
+   times the beam instance of stage 1 at that shape beside the thermal
+   instance (their ratio, and the blocks per SM of each as the CUDA
+   runtime's occupancy query gives them) and holds it against
    its plain version there (without the gas; float64 2e-5, float32 1e-4,
    two float32 runs bit-identical); and runs the sun
    camera of the JAX package's example 12 through allsky_observer in
@@ -1131,8 +1133,12 @@ def phase_solar_allsky(dev, _cuda, entry, reps=5):
     b = bound(B * L * stage1_flops(n, 6, beam=True),
               nbytes(*s1) + nbytes(*beam[:4]) + nbytes(*outs))
     del outs
+    (occ_b, smem), (occ_t, _) = (FK.stage1_occupancy(n, torch.float32, flag)
+                                 for flag in (True, False))
     log(f"disort_stage1 beam float32 [{L} x {B}] n={n}: {ms:.3f} ms (without the beam "
-        f"{ms_thermal:.3f} ms; plain {plain:.1f} ms), bound {b[0]:.4f} ms ({b[1]})")
+        f"{ms_thermal:.3f} ms, ratio {ms / ms_thermal:.3f}; plain {plain:.1f} ms), bound "
+        f"{b[0]:.4f} ms ({b[1]}); blocks per SM (CUDA occupancy, {smem} B of shared memory "
+        f"per block): beam {occ_b}, thermal {occ_t}")
     entry.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
                  launches=launches["disort_stage1_beam"], calls=reps)
     del s1, beam

@@ -462,16 +462,19 @@ def test_stage1_kernel_float32_runs_bit_identical(dev):
 
 
 @pytest.mark.parametrize("mu0", [0.15, 0.5, 0.92])
-@pytest.mark.parametrize("B, L", [(7, 1), (300, 7)])
+@pytest.mark.parametrize("B, L", [(7, 1), (300, 7), (4101, 59)])
 @pytest.mark.parametrize("nquad", [8, 16])
 @pytest.mark.parametrize("dtype, rtol, floor", [(torch.float64, 2e-5, 1e-13),
                                                 (torch.float32, 1e-4, 1e-6)])
 def test_stage1_beam_kernel_matches_plain(dev, dtype, rtol, floor, nquad, B, L, mu0):
     """The beam instance of the stage 1 kernel against the plain version's
     beam branch on random scattering problems with random beam sources
-    (scene.build_beam_case), the sun at three zenith cosines: all seven
-    outputs at chip_smoke's tolerances; one launch, counted as the beam
-    instance's."""
+    (scene.build_beam_case), the sun at three zenith cosines, with last
+    blocks of lanes that are not full (B = 4101 at 59 layers: AmB in each
+    problem's X tile and the staged pp/pm read across the team, the lanes
+    past the end computing on the last lane's data and storing nothing):
+    all seven outputs at chip_smoke's tolerances; one launch, counted as
+    the beam instance's."""
     from arts_tpu_torch import _cuda
     from arts_tpu_torch.disort import fused_kernel as FK
     from arts_tpu_torch.scene import build_beam_case

@@ -1,7 +1,7 @@
 """Compare the machine code of csrc/disort_fused.cu's kernels with another
 checkout's, instance by instance.
 
-    python3 tools/sass_diff.py --parent DIR
+    python3 tools/sass_diff.py --parent DIR [--beam-changes]
 
 Compiles both sources to cubins with the package's nvcc flags (nvcc and
 cuobjdump from CUDA_HOME, no card needed) and compares the SASS of each
@@ -9,7 +9,9 @@ kernel instance of the parent's, keyed by kernel, type and n: an instance
 that gained a template flag (stage1_kernel<T, N> -> stage1_kernel<T, N,
 false>) is compared under its parent's key.  Prints one line per instance
 and the tree's instances the parent lacks; exits non-zero if any of the
-parent's instances changed.
+parent's instances changed, but for the beam instances of stage 1
+(stage1_kernel<T, N, true>) under --beam-changes, for a change to the beam
+instance that must leave every other instance's machine code as it was.
 """
 
 import argparse
@@ -49,35 +51,44 @@ def sass(src, out):
     return funcs
 
 
-def compare(parent):
+def compare(parent, beam_changes=False):
     """Print the comparison with the checkout `parent`; True when every
-    instance of the parent's has the same machine code here."""
+    instance of the parent's has the same machine code here (with
+    beam_changes, every one but stage 1's beam instances)."""
     name = "disort_fused.cu"
     with tempfile.TemporaryDirectory() as tmp:
         old = sass(parent / "arts_tpu_torch" / "csrc" / name, pathlib.Path(tmp) / "old.cubin")
         new = sass(_cuda.CSRC / name, pathlib.Path(tmp) / "new.cubin")
-    changed = 0
+    changed = allowed = 0
     for key, lines in sorted(old.items(), key=str):
         mine = new.get(key)
         if mine is None and isinstance(key, tuple) and key[3] is None:
             mine = new.get(key[:3] + ("0",))
         same = mine == lines
-        changed += not same
+        free = beam_changes and isinstance(key, tuple) and key[0] == "stage1_kernel" \
+            and key[3] == "1"
+        changed += not same and not free
+        allowed += not same and free
         diff = "" if same or mine is None else (
             f", {sum(x != y for x, y in zip(lines, mine)) + abs(len(lines) - len(mine))} lines differ")
-        print(f"  {key}: {'same machine code' if same else 'CHANGED'} ({len(lines)} lines{diff})",
-              flush=True)
+        state = "same machine code" if same else "changed (a beam instance)" if free else "CHANGED"
+        print(f"  {key}: {state} ({len(lines)} lines{diff})", flush=True)
     seen = set(old) | {k[:3] + ("0",) for k in old if isinstance(k, tuple) and k[3] is None}
     for key in sorted(set(new) - seen, key=str):
         print(f"  {key}: new ({len(new[key])} lines)", flush=True)
-    print(f"  {changed} of {len(old)} instances of the parent changed", flush=True)
+    print(f"  {changed} of {len(old)} instances of the parent changed"
+          + (f" outside stage 1's beam instances ({allowed} of those changed)"
+             if beam_changes else ""), flush=True)
     return changed == 0
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=pathlib.Path, required=True)
-    return 0 if compare(ap.parse_args().parent) else 1
+    ap.add_argument("--beam-changes", action="store_true",
+                    help="stage 1's beam instances may differ from the parent's")
+    args = ap.parse_args()
+    return 0 if compare(args.parent, args.beam_changes) else 1
 
 
 if __name__ == "__main__":
