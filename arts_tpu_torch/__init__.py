@@ -26,6 +26,12 @@ its plain PyTorch version:
     kernel; simulate_clearsky_from_levels), and the sensor pipeline
     (sensor.measurement_vector with its observers and Jacobians), e.g.
     scene.build_clearsky_measurement and scene.build_clearsky_retrieval.
+The gas absorption of every path is the line catalog plus the predefined
+models a scene names (predefined: the 27 models of the JAX package), e.g.
+scene.build_continuum_scene and scene.build_predef_scene; lbl.cia,
+lbl.xsec_fit and lbl.lookup give collision-induced absorption,
+cross-section fits and lookup tables (train_lookup through the Voigt
+kernel, e.g. scene.build_lookup_case).
 Entry points run on the card unless the caller passes device="cpu";
 without a card they raise.  Importing the package touches no device and
 changes no global setting.

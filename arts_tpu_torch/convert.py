@@ -5,11 +5,13 @@ scene_from_numpy takes the leaves of an all-sky scene as a nested dict of
 numpy arrays:
 
     {"atm": {"z", "t", "p", "vmr"},
-     "cat": {the LineCatalog fields},
-     "pf": {"t_grid", "q_grid"},
+     "cat": {the LineCatalog fields} (optional),
+     "pf": {"t_grid", "q_grid"} (optional),
      "scatterers": [{"ext", "ssa", "g"}, ...],   # Henyey-Greenstein
      "surface_temperature": scalar,
-     "surface_albedo": scalar (optional, default 0)}
+     "surface_albedo": scalar (optional, default 0),
+     "predef": (model names) and "species_names": (the rows of vmr)
+     (optional; the predefined absorption models)}
 
 clearsky_scene_from_numpy takes a clear-sky scene the same way:
 
@@ -17,7 +19,8 @@ clearsky_scene_from_numpy takes a clear-sky scene the same way:
      "cat": {...} (optional), "pf": {"t_grid", "q_grid"} (optional),
      "surface_temperature": scalar,
      "surface_emissivity": scalar (optional, default 1),
-     "nlte": {"z", "r", "cat", "up_idx", "lo_idx"} (optional)}
+     "nlte": {"z", "r", "cat", "up_idx", "lo_idx"} (optional),
+     "predef", "species_names" (optional, as above)}
 
 and zeeman_scene_from_numpy a polarized one:
 
@@ -30,8 +33,13 @@ and zeeman_scene_from_numpy a polarized one:
 sensor_from_numpy a sensor's weights: {"row", "geo", "freq", "w",
 "n_elements"}.  zeeman_catalog_from_numpy and
 padded_zeeman_catalog_from_numpy take a Zeeman catalog and its bucketed
-form the same way.
+form the same way.  cia_dataset_from_numpy, xsec_fit_dataset_from_numpy,
+lookup_table_from_numpy and mtckd_data_from_numpy take the absorption
+datasets: a CIA table, a cross-section fit, a lookup table and the
+MT_CKD 4.x water tables, each as a dict of its fields.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -41,9 +49,13 @@ from .atm import Atmosphere1D
 from .fwd import ClearskyScene, ZeemanScene
 from .fwd_allsky import AllskyScene
 from .lbl.catalog import catalog_from_arrays
+from .lbl.cia import LOSCHMIDT, CIADataset
+from .lbl.lookup import AbsLookupTable
 from .lbl.nlte import NlteField
 from .lbl.partfun import PartFunTable
+from .lbl.xsec_fit import XsecFitDataset
 from .lbl.zeeman import PaddedZeemanCatalog, ZeemanCatalog
+from .predefined.mt_ckd400 import MTCKD400Data, MTCKD430Data
 from .scattering import HenyeyGreenstein
 from .sensor import SensorArray
 
@@ -53,13 +65,22 @@ def scene_from_numpy(d, device=None, dtype=None) -> AllskyScene:
     t = lambda a: torch.tensor(np.asarray(a, dtype=np.float64), dtype=dt, device=dev)
     atm = Atmosphere1D(**{k: t(d["atm"][k]) for k in ("z", "t", "p", "vmr")})
     return AllskyScene(
-        atm=atm, cat=catalog_from_arrays(d["cat"], dev, dt),
-        pf=PartFunTable(t_grid=t(d["pf"]["t_grid"]), q_grid=t(d["pf"]["q_grid"])),
+        atm=atm, cat=_catalog(d, dev, dt), pf=_partfun(d, t),
         scatterers=tuple(HenyeyGreenstein(**{k: t(s[k]) for k in ("ext", "ssa", "g")})
                          for s in d.get("scatterers", ())),
         surface_temperature=t(d["surface_temperature"]),
         surface_albedo=t(d.get("surface_albedo", 0.0)),
+        predef=tuple(d.get("predef", ())), species_names=tuple(d.get("species_names", ())),
     )
+
+
+def _catalog(d, dev, dt):
+    return None if d.get("cat") is None else catalog_from_arrays(d["cat"], dev, dt)
+
+
+def _partfun(d, t):
+    pf = d.get("pf")
+    return None if pf is None else PartFunTable(t_grid=t(pf["t_grid"]), q_grid=t(pf["q_grid"]))
 
 
 def clearsky_scene_from_numpy(d, device=None, dtype=None) -> ClearskyScene:
@@ -69,12 +90,10 @@ def clearsky_scene_from_numpy(d, device=None, dtype=None) -> ClearskyScene:
     atm = Atmosphere1D(**{k: t(a[k]) for k in ("z", "t", "p", "vmr")},
                        wind=None if a.get("wind") is None else t(a["wind"]))
     return ClearskyScene(
-        atm=atm,
-        cat=None if d.get("cat") is None else catalog_from_arrays(d["cat"], dev, dt),
-        pf=None if d.get("pf") is None else PartFunTable(t_grid=t(d["pf"]["t_grid"]),
-                                                          q_grid=t(d["pf"]["q_grid"])),
+        atm=atm, cat=_catalog(d, dev, dt), pf=_partfun(d, t),
         surface_temperature=t(d["surface_temperature"]),
         surface_emissivity=t(d.get("surface_emissivity", 1.0)),
+        predef=tuple(d.get("predef", ())), species_names=tuple(d.get("species_names", ())),
         nlte=None if d.get("nlte") is None else nlte_field_from_numpy(d["nlte"], dev, dt),
     )
 
@@ -142,3 +161,41 @@ def padded_zeeman_catalog_from_numpy(d, device=None, dtype=None) -> PaddedZeeman
         strength=tuple(map(flts, d["strength"])),
         polidx=tuple(map(ints, d["polidx"])),
     )
+
+
+def cia_dataset_from_numpy(d, device=None, dtype=None) -> CIADataset:
+    """CIADataset from {"f_grid", "t_grid", "xsec" [T0, F0] binary
+    cross-section [m^5], "spec1", "spec2"}: the scaled table xsec * L0^2
+    (lbl/cia.py) is formed in float64 before the cast."""
+    dev, dt = resolve(device, dtype)
+    _, flts = _tensors(dev, dt)
+    return CIADataset(f_grid=flts(d["f_grid"]), t_grid=flts(d["t_grid"]),
+                      alpha_l0=flts(np.asarray(d["xsec"], dtype=np.float64) * LOSCHMIDT**2),
+                      spec1=int(d.get("spec1", 0)), spec2=int(d.get("spec2", 0)))
+
+
+def xsec_fit_dataset_from_numpy(d, device=None, dtype=None) -> XsecFitDataset:
+    """XsecFitDataset from {"f_grid" [N], "coeffs" [N, 4], "spec_idx"}."""
+    dev, dt = resolve(device, dtype)
+    _, flts = _tensors(dev, dt)
+    return XsecFitDataset(f_grid=flts(d["f_grid"]), coeffs=flts(d["coeffs"]),
+                          spec_idx=int(d.get("spec_idx", 0)))
+
+
+def lookup_table_from_numpy(d, device=None, dtype=None) -> AbsLookupTable:
+    """AbsLookupTable from its fields (log_p_grid, t_ref, w_ref, t_pert,
+    w_pert, f_grid, xsec; spec_idx)."""
+    dev, dt = resolve(device, dtype)
+    _, flts = _tensors(dev, dt)
+    names = ("log_p_grid", "t_ref", "w_ref", "t_pert", "w_pert", "f_grid", "xsec")
+    return AbsLookupTable(**{k: flts(d[k]) for k in names}, spec_idx=int(d.get("spec_idx", 0)))
+
+
+def mtckd_data_from_numpy(d, device=None, dtype=None):
+    """MTCKD400Data from {"wavenumbers", "self_absco_ref", "for_absco_ref",
+    "self_texp", "ref_press", "ref_temp"}; MTCKD430Data when the dict also
+    holds "for_closure_absco_ref"."""
+    dev, dt = resolve(device, dtype)
+    _, flts = _tensors(dev, dt)
+    cls = MTCKD430Data if "for_closure_absco_ref" in d else MTCKD400Data
+    return cls(**{f.name: flts(d[f.name]) for f in dataclasses.fields(cls)})

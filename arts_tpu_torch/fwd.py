@@ -10,11 +10,15 @@ Every path argument may carry leading batch axes (one path per row,
 padded with zero-length segments, which are exact no-ops); the result
 keeps them.  Everything is differentiable by autograd and torch.func.
 
-A non-LTE band (scene.nlte, lbl.nlte.NlteField) adds its absorption to
-K and its emission excess S to the source, J = B + K^-1 S, in the scalar
-and the polarized radiance.  Not ported yet (each raises
-NotImplementedError): the predefined continua and ECS line-mixing bands
-(ROADMAP §A 5) and the sun in the pencil beam (§A 7).
+The gas absorption of a scene is its line catalog plus its predefined
+models (scene.predef, the continua and full models of
+predefined/models.py, with scene.species_names naming the rows of the
+VMRs), assembled in species_absorption for every caller.  A non-LTE band
+(scene.nlte, lbl.nlte.NlteField) adds its absorption to K and its
+emission excess S to the source, J = B + K^-1 S, in the scalar and the
+polarized radiance.  Not ported yet (each raises NotImplementedError):
+ECS line-mixing bands (ROADMAP §A 5) and the sun in the pencil beam
+(§A 7).
 """
 
 import dataclasses
@@ -31,6 +35,7 @@ from .lbl.voigt import absorption, absorption_kernel
 from .lbl.zeeman import ZeemanCatalog, zeeman_propmat_views
 from .ops.planck import inv_planck, planck
 from .options import PathBackground, RteOption, check_option
+from .predefined import predefined_absorption
 from .rtepack import emission as E
 from .rtepack.propmat import inv as pm_inv
 from .rtepack.propmat import matvec
@@ -56,9 +61,6 @@ def _emission_fn_polarized(rte_option: str):
 
 
 def _refuse_unported(scene):
-    if getattr(scene, "predef", ()):
-        raise NotImplementedError("predefined absorption models are not ported yet "
-                                  "(ROADMAP §A 5)")
     if getattr(scene, "ecs_bands", ()):
         raise NotImplementedError("ECS line-mixing bands are not ported yet (ROADMAP §A 5)")
 
@@ -69,29 +71,38 @@ def species_absorption(scene, fg, t, p, v, block: int = 256, backend: str = "xla
     line catalog by the dense route (backend "xla", differentiable, lines
     in blocks of `block`; fg [F] or one grid per point [..., F]) or through
     the Voigt kernel (backend "pallas": its plain version on CPU tensors,
-    or anywhere with plain=True; fg [F])."""
+    or anywhere with plain=True; fg [F]), plus the scene's predefined
+    models (scene.predef, VMRs by scene.species_names) on either."""
     _refuse_unported(scene)
-    if scene.cat is None or scene.cat.n_lines == 0:
-        return torch.zeros(t.shape + fg.shape[-1:], dtype=fg.dtype, device=fg.device)
-    if backend == "pallas":
-        shape = t.shape
-        a = absorption_kernel(fg, scene.cat, scene.pf, t.reshape(-1), p.reshape(-1),
-                              v.reshape(-1, v.shape[-1]), plain=plain,
-                              device=fg.device, dtype=fg.dtype)
-        return a.reshape(shape + fg.shape)
-    if backend != "xla":
+    if backend not in ("xla", "pallas"):
         raise ValueError(f"species_absorption: backend {backend!r} (xla, pallas)")
-    return absorption(fg, scene.cat, scene.pf, t, p, v, block=block,
-                      device=fg.device, dtype=fg.dtype)
+    a = torch.zeros(torch.broadcast_shapes(t.shape + (1,), fg.shape), dtype=fg.dtype,
+                    device=fg.device)
+    if scene.cat is not None and scene.cat.n_lines > 0:
+        if backend == "pallas":
+            shape = t.shape
+            a = a + absorption_kernel(fg, scene.cat, scene.pf, t.reshape(-1), p.reshape(-1),
+                                      v.reshape(-1, v.shape[-1]), plain=plain,
+                                      device=fg.device, dtype=fg.dtype).reshape(shape + fg.shape)
+        else:
+            a = a + absorption(fg, scene.cat, scene.pf, t, p, v, block=block,
+                               device=fg.device, dtype=fg.dtype)
+    if getattr(scene, "predef", ()):
+        vmrs = {tag: v[..., i] for i, tag in enumerate(scene.species_names)}
+        a = a + predefined_absorption(scene.predef, fg, t, p, vmrs, device=fg.device,
+                                      dtype=fg.dtype)
+    return a
 
 
 @dataclasses.dataclass(frozen=True)
 class ClearskyScene:
-    """Scene state of a clear-sky emission simulation.  nlte is an optional
-    non-LTE band (lbl.nlte.NlteField).  predef and ecs_bands are the JAX
-    package's fields for absorption the port cannot evaluate yet: a scene
-    that sets one raises NotImplementedError.  species_names names the
-    rows of atm.vmr."""
+    """Scene state of a clear-sky emission simulation.  predef names the
+    predefined absorption models (predefined.PREDEF_MODELS) added to the
+    catalog's lines; species_names names the rows of atm.vmr; cat and pf
+    may be None (predefined models only).  nlte is an optional non-LTE
+    band (lbl.nlte.NlteField).  ecs_bands is the JAX package's field for
+    ECS line-mixing bands, which the port cannot evaluate yet: a scene
+    that sets it raises NotImplementedError."""
 
     atm: Atmosphere1D
     cat: LineCatalog | None

@@ -2,9 +2,9 @@
 particles -> DISORT (port of arts_tpu/fwd_allsky.py).
 
 Per frequency: the vertical profile's gas absorption (the Voigt kernel
-over all levels at once), particle extinction and phase moments, layer
-optical depths, Planck sources and the solar beam, and one batched DISORT
-solve over all frequencies.
+over all levels at once, and the predefined models), particle extinction
+and phase moments, layer optical depths, Planck sources and the solar
+beam, and one batched DISORT solve over all frequencies.
 """
 
 import dataclasses
@@ -24,12 +24,19 @@ from .scattering import HenyeyGreenstein
 
 @dataclasses.dataclass(frozen=True)
 class AllskyScene:
+    """Scene state of an all-sky simulation: the gas is the line catalog
+    (cat, pf; None for none) and the predefined models named in predef,
+    with species_names naming the rows of atm.vmr; scatterers are
+    HenyeyGreenstein entries."""
+
     atm: Atmosphere1D
-    cat: LineCatalog
-    pf: PartFunTable
-    scatterers: tuple  # HenyeyGreenstein entries
+    cat: LineCatalog | None
+    pf: PartFunTable | None
+    scatterers: tuple
     surface_temperature: torch.Tensor
     surface_albedo: torch.Tensor
+    predef: tuple = ()
+    species_names: tuple = ()
 
 
 def _scatterer_profiles(sc, F, Z, nleg):
@@ -45,9 +52,10 @@ def _scatterer_profiles(sc, F, Z, nleg):
 
 def gas_absorption_profile(scene: AllskyScene, f_grid, plain: bool = False,
                            device=None, dtype=None):
-    """Gas absorption on the scene's levels, TOA-first: [F, Z], through the
-    Voigt kernel (its plain version for CPU tensors, or anywhere with
-    plain=True)."""
+    """Gas absorption on the scene's levels, TOA-first: [F, Z]: the lines
+    through the Voigt kernel, all levels in one launch (its plain version
+    for CPU tensors, or anywhere with plain=True), plus the predefined
+    models."""
     dev, dt = resolve(device, dtype)
     scene, f_grid = move((scene, f_grid), dev, dt)
     pts = scene.atm.at(scene.atm.z.flip(0))

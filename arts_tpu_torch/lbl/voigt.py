@@ -108,9 +108,10 @@ def _stimulated(f_grid, T):
 
 
 def absorption(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr, block=256,
-               device=None, dtype=None):
+               no_negative_absorption=True, device=None, dtype=None):
     """LBL absorption coefficient [1/m] by the plain dense route (the JAX
-    package's XLA route), clipped at 0: [..., F] at the points T, P [...],
+    package's XLA route), clipped at 0 unless no_negative_absorption is
+    False (line mixing can make it negative): [..., F] at the points T, P [...],
     vmr [..., S]; f_grid [F], or [..., F] with one grid per point (the
     Doppler-shifted grids of a windy path).  The lines are summed in
     blocks of `block`, so that a call's intermediates hold
@@ -123,7 +124,7 @@ def absorption(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr, block=256,
     alpha = _stimulated(f_grid, T) * _shape_sum(
         f_grid, s, cat.f0, inv_gd, z_imag, cat.cutoff, block,
         shift=ls[..., ID0] + ls[..., IDV]).real
-    return torch.clamp(alpha, min=0.0)
+    return torch.clamp(alpha, min=0.0) if no_negative_absorption else alpha
 
 
 def voigt_sum_args(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr):
@@ -154,10 +155,13 @@ def voigt_sum_args(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr):
 
 
 def absorption_kernel(f_grid, cat: LineCatalog, pf: PartFunTable, T, P, vmr,
-                      plain=False, device=None, dtype=None):
+                      plain=False, no_negative_absorption=True, device=None, dtype=None):
     """absorption() for the points T, P [Z] and vmr [Z, S] through the
-    Voigt kernel: [Z, F].  plain=True runs the kernel's plain version."""
+    Voigt kernel, in one launch for all points: [Z, F], clipped at 0
+    unless no_negative_absorption is False.  plain=True runs the kernel's
+    plain version."""
     dev, dt = resolve(device, dtype)
     f_grid, cat, pf, T, P, vmr = move((f_grid, cat, pf, T, P, vmr), dev, dt)
     shape_re = voigt_sum(*voigt_sum_args(f_grid, cat, pf, T, P, vmr), plain=plain)
-    return torch.clamp(_stimulated(f_grid, T) * shape_re, min=0.0)
+    alpha = _stimulated(f_grid, T) * shape_re
+    return torch.clamp(alpha, min=0.0) if no_negative_absorption else alpha

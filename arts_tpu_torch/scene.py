@@ -19,6 +19,10 @@ the zeeman_mp kernel random pole records on which every part of its sum
 shows.  build_clearsky_measurement is an ATMS 183 GHz scan line over the
 benchmark scene, build_clearsky_retrieval a water-vapour retrieval from
 25 Gaussian channels on the window scene without its cloud.
+build_continuum_scene is the benchmark scene with its continua added to
+the lines, build_predef_scene an all-sky scene of the JAX package's
+example gas models without a catalog, and build_lookup_case a lookup
+table's training inputs on the benchmark and its check points.
 """
 
 import dataclasses
@@ -89,23 +93,127 @@ def build_scene(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=None):
     dev, dt = resolve(device, dtype)
     atm = standard_atmosphere(n_levels=n_lev, z_top=80e3, species=("H2O", "O2"),
                               device=dev, dtype=dt)
-    lines = read_par(synth_par_rows(n_lines), ["H2O", "O2"], cutoff=25e9)
-    lines.sort(key=lambda l: l["f0"])
-    cat = build_catalog(lines, device=dev, dtype=dt)
-    pf = rigid_rotor_table(2, [174.6, 215.7], 1.5, device=dev, dtype=dt)
-    in_cloud = (atm.z > 4e3) & (atm.z < 9e3)
-    cloud = HenyeyGreenstein(
-        ext=torch.where(in_cloud, torch.full_like(atm.z, 3e-4), torch.zeros_like(atm.z)),
-        ssa=torch.full_like(atm.z, 0.85),
-        g=torch.full_like(atm.z, 0.7),
-    )
     scene = AllskyScene(
-        atm=atm, cat=cat, pf=pf, scatterers=(cloud,),
+        atm=atm, cat=build_catalog(_bench_lines(n_lines), device=dev, dtype=dt),
+        pf=_bench_partfun(dev, dt), scatterers=(_bench_cloud(atm),),
         surface_temperature=torch.tensor(288.0, dtype=dt, device=dev),
         surface_albedo=torch.tensor(0.0, dtype=dt, device=dev),
     )
     f_grid = torch.as_tensor(np.linspace(160e9, 260e9, n_freq), dtype=dt, device=dev)
     return scene, f_grid
+
+
+def _bench_lines(n_lines):
+    lines = read_par(synth_par_rows(n_lines), ["H2O", "O2"], cutoff=25e9)
+    lines.sort(key=lambda l: l["f0"])
+    return lines
+
+
+def _bench_partfun(dev, dt):
+    return rigid_rotor_table(2, [174.6, 215.7], 1.5, device=dev, dtype=dt)
+
+
+def _bench_cloud(atm):
+    """The benchmark's Henyey-Greenstein cloud between 4 and 9 km."""
+    in_cloud = (atm.z > 4e3) & (atm.z < 9e3)
+    return HenyeyGreenstein(
+        ext=torch.where(in_cloud, torch.full_like(atm.z, 3e-4), torch.zeros_like(atm.z)),
+        ssa=torch.full_like(atm.z, 0.85),
+        g=torch.full_like(atm.z, 0.7),
+    )
+
+
+# the continuum-only models of build_continuum_scene: no line of the
+# benchmark catalog is counted twice
+CONTINUA = ("H2O-SelfContCKDMT350", "H2O-ForeignContCKDMT350", "N2-SelfContStandardType")
+# the gas models of the JAX package's examples 1 and 3
+EXAMPLE_GAS_MODELS = ("N2-SelfContStandardType", "O2-PWR98", "H2O-PWR98")
+
+
+def build_continuum_scene(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=None):
+    """(AllskyScene, f_grid) of the benchmark scene with its continua: an
+    N2 row added to the atmosphere (rows H2O, O2, N2; the H2O and O2 rows
+    and the catalog's species indices unchanged) and the MT_CKD 3.50 H2O
+    self and foreign continua and the standard N2 continuum (CONTINUA)
+    added to the 2048 lines."""
+    dev, dt = resolve(device, dtype)
+    scene, f = build_scene(n_lev, n_freq, n_lines, device=dev, dtype=dt)
+    species = ("H2O", "O2", "N2")
+    atm = standard_atmosphere(n_levels=n_lev, z_top=80e3, species=species, device=dev,
+                              dtype=dt)
+    return dataclasses.replace(scene, atm=atm, predef=CONTINUA, species_names=species), f
+
+
+def build_predef_scene(n_lev=60, n_freq=4096, device=None, dtype=None):
+    """(AllskyScene, f_grid) of predefined models alone: the gas models of
+    the JAX package's example 3 (EXAMPLE_GAS_MODELS), no line catalog, the
+    benchmark's atmosphere (rows N2, O2, H2O), cloud and surface, and
+    n_freq frequencies over example 1's 10-200 GHz."""
+    dev, dt = resolve(device, dtype)
+    species = ("N2", "O2", "H2O")
+    atm = standard_atmosphere(n_levels=n_lev, z_top=80e3, species=species, device=dev,
+                              dtype=dt)
+    scene = AllskyScene(
+        atm=atm, cat=None, pf=None, scatterers=(_bench_cloud(atm),),
+        surface_temperature=torch.tensor(288.0, dtype=dt, device=dev),
+        surface_albedo=torch.tensor(0.0, dtype=dt, device=dev),
+        predef=EXAMPLE_GAS_MODELS, species_names=species,
+    )
+    return scene, torch.as_tensor(np.linspace(10e9, 200e9, n_freq), dtype=dt, device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class LookupCase:
+    """A lookup table's training inputs (train_lookup's arguments) and the
+    off-grid points at which to hold the table against direct absorption:
+    T, P [M], vmr [M, S]."""
+
+    f_grid: torch.Tensor
+    cat: object
+    pf: object
+    p_grid: torch.Tensor
+    t_ref: torch.Tensor
+    w_ref: torch.Tensor
+    vmr_ref: torch.Tensor
+    spec_idx: int
+    t_pert: torch.Tensor
+    w_pert: torch.Tensor
+    T: torch.Tensor
+    P: torch.Tensor
+    vmr: torch.Tensor
+
+    def train_args(self):
+        return (self.f_grid, self.cat, self.pf, self.p_grid, self.t_ref, self.w_ref,
+                self.vmr_ref, self.spec_idx, self.t_pert, self.w_pert)
+
+
+def build_lookup_case(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=None):
+    """A lookup table for H2O on the benchmark: the H2O lines of the
+    benchmark catalog (a table holds one species, whose absorption its
+    water axis scales; the O2 lines would need a table of their own), its
+    n_freq frequencies, its n_lev levels as the reference profile (t, p,
+    H2O VMR; the other species at their surface VMRs), temperature
+    offsets -20..20 K and water factors 0.25..4 in 5 values each: 1,500
+    training points at 60 levels.  The check points lie between adjacent
+    levels (0.37 of the way in log p), 4.7 K warmer than the reference
+    there and with 1.3 times its water."""
+    dev, dt = resolve(device, dtype)
+    atm = standard_atmosphere(n_levels=n_lev, z_top=80e3, species=("H2O", "O2"),
+                              device=dev, dtype=dt)
+    f = torch.as_tensor(np.linspace(160e9, 260e9, n_freq), dtype=dt, device=dev)
+    lines = [l for l in _bench_lines(n_lines) if l["spec_idx"] == 0]
+    lp = torch.log(atm.p)
+    lp_mid = 0.63 * lp[:-1] + 0.37 * lp[1:]
+    mix = lambda a: 0.63 * a[:-1] + 0.37 * a[1:]  # linear in log p
+    vmr_ref = atm.vmr[:, 0]
+    w_mid = 1.3 * mix(atm.vmr[0])
+    vmr = torch.cat([w_mid[:, None], vmr_ref[1:].expand(w_mid.shape[0], -1)], 1)
+    return LookupCase(
+        f_grid=f, cat=build_catalog(lines, device=dev, dtype=dt), pf=_bench_partfun(dev, dt),
+        p_grid=atm.p, t_ref=atm.t, w_ref=atm.vmr[0], vmr_ref=vmr_ref, spec_idx=0,
+        t_pert=torch.linspace(-20.0, 20.0, 5, dtype=dt, device=dev),
+        w_pert=torch.tensor([0.25, 0.5, 1.0, 2.0, 4.0], dtype=dt, device=dev),
+        T=mix(atm.t) + 4.7, P=torch.exp(lp_mid), vmr=vmr)
 
 
 def build_zeeman_inputs(n_lev=60, n_freq=4096, n_lines=2048, device=None, dtype=None):

@@ -131,8 +131,33 @@
    (scene.build_clearsky_retrieval, float64), each Gauss-Newton iterate on
    the card against the CPU's (1e-10 of scale), converged within 0.02 of
    the truth below 12 km;
-12. prints each kernel's launches on its path, time, plain-version time,
-   library time, largest difference and bound as one JSON line, then the
+12. (after phase 10) the absorption slice: the 27 predefined models on
+   the card (phase_predef: the 22 with goldens in float64 against the 58
+   in-repo goldens at the CPU test's tolerances, the other 5 in float64
+   against the CPU's at 1e-12 of scale, all 27 in float32 against float64
+   on the same inputs at five bench levels over each model's band with
+   its table nodes, 1e-5 of scale, each model's largest difference
+   printed); CIA and cross-section fits, float32 against float64 on the
+   CPU tests' cases (1e-6 of scale); the continuum scene
+   (scene.build_continuum_scene: the bench scene with the MT_CKD 3.50 H2O
+   and standard N2 continua, kernels 1-4) and the predefined-only scene
+   (scene.build_predef_scene: example 3's gas models, no catalog, 10-200
+   GHz, kernels 2-4) at full width, each the median of 5 float32 calls
+   with the counts set to 0 just before and read just after, a profiled
+   call, and the bench guards against the float64 plain route on the same
+   inputs (flux_up 3e-3, u0 5e-3 of scale, every 16th frequency), with
+   the continua's share of the absorption; and lookup-table training
+   (scene.build_lookup_case: 5 x 5 x 60 = 1500 points x 4096 frequencies,
+   the bench's H2O lines) in one Voigt-kernel launch per training (median
+   of 3, counts set to 0 just before and read just after), the kernel at
+   that shape against its plain version at three points (float64 1e-9,
+   float32 rtol 2e-6 and 5e-7 of scale) with its time and bound, and the
+   table at 59 points between the levels within 5 % of direct kernel
+   absorption;
+13. prints each kernel's launches on its path, time, plain-version time,
+   library time, largest difference and bound as one JSON line (kernel
+   1's launches on each of its paths under launches_on, and its time and
+   bound at the lookup-training shape under lookup_training), then the
    total seconds and the card line, then {"ok": true, "device": {...}} as
    the last line.
 
@@ -143,6 +168,7 @@ with status 1 and prints no result.  It imports nothing of JAX.
 import dataclasses
 import json
 import math
+import pathlib
 import re
 import subprocess
 import sys
@@ -1936,6 +1962,337 @@ def phase_clearsky_measurement(dev, _cuda, reps=5):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the absorption slice: predefined models, CIA, cross-section fits, lookup
+# ---------------------------------------------------------------------------
+
+GOLDENS = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "predef_goldens.json"
+# the golden's VMR key per model, and the CPU test's relative tolerance
+# (tests/test_predef_goldens.py; O2-v1v0's lattice is anchored on its band)
+GOLDEN_VMR = {"O2-MPM2020": "O2", "liquidcloud-ELL07": "liquidcloud", "H2O-MPM89": "H2O",
+              "H2O-SelfContCKDMT350": "H2O", "H2O-ForeignContCKDMT350": "H2O",
+              "O2-MPM89": "O2", "O2-TRE05": "O2", "N2-SelfContMPM93": "N2",
+              "H2O-PWR2021": "H2O", "H2O-PWR2022": "H2O", "O2-PWR2021": "O2",
+              "O2-PWR2022": "O2", "N2-SelfContPWR2021": "N2", "H2O-SelfContCKDMT320": "H2O",
+              "H2O-ForeignContCKDMT320": "H2O", "CO2-CKDMT252": "CO2",
+              "O2-visCKDMT252": "O2", "N2-CIAfunCKDMT252": "N2", "N2-CIArotCKDMT252": "N2",
+              "O2-CIAfunCKDMT100": "O2", "O2-v0v0CKDMT100": "O2", "O2-v1v0CKDMT100": "O2"}
+GOLDEN_RTOL = {"O2-v1v0CKDMT100": 1e-4}
+PREDEF_F32_TOL = 1e-5  # float32 against float64 on the same inputs, of scale
+HZ_PER_KAYSER = 100.0 * 299792458.0
+
+
+def _predef_points(dev, dt):
+    """Five levels of the bench atmosphere (0, 3, 9, 20 and 45 of 60) with
+    CO2 and a 0.2 g/m^3 liquid cloud where T > 250 K: (t, p, vmrs)."""
+    from arts_tpu_torch.atm.standard import standard_atmosphere
+
+    species = ("N2", "O2", "H2O", "CO2")
+    atm = standard_atmosphere(n_levels=60, z_top=80e3, species=species, device=dev,
+                              dtype=torch.float64)
+    lev = [0, 3, 9, 20, 45]
+    t, p = atm.t[lev], atm.p[lev]
+    vmrs = {s: atm.vmr[i, lev] for i, s in enumerate(species)}
+    vmrs["liquidcloud"] = torch.where(t > 250.0, 2e-4, 0.0)
+    cast = lambda x: x.to(dt)
+    return cast(t), cast(p), {k: cast(v) for k, v in vmrs.items()}
+
+
+def _predef_band(name, goldens):
+    """The model's golden frequencies (1-1000 GHz without goldens) and, for
+    the table models, lattice nodes of its table [Hz]."""
+    f = next((np.asarray(c["f_hz"], float) for c in goldens if c["model"] == name),
+             np.linspace(1e9, 1000e9, 97))
+    nodes = {"CKDMT3": [10.0, 100.0, 1000.0, 5000.0, 15000.0], "CO2-": [600.0, 2002.0],
+             "O2-vis": [15010.0, 20000.0], "N2-CIAfun": [2001.766357 + 3.981461525 * i for i in (5, 60)],
+             "N2-CIArot": [50.0, 300.0], "O2-CIAfun": [1500.0], "O2-v0v0": [7800.0],
+             "O2-v1v0": [9400.0, 10000.0]}
+    extra = [v for key, vs in nodes.items() if key in name for v in vs]
+    return np.sort(np.concatenate([f, np.asarray(extra) * HZ_PER_KAYSER]))
+
+
+def phase_predef(dev):
+    """The 27 predefined models on the card: the 22 with goldens in float64
+    against the 58 in-repo goldens at the CPU test's tolerances; the other
+    5 in float64 at five bench levels against the CPU's float64 (1e-12 of
+    scale); all 27 in float32 against float64 on the same inputs at the
+    bench levels, each over its own band with table nodes (PREDEF_F32_TOL
+    of scale, each model's largest difference printed); and the time of
+    the continuum scene's three continua at full width."""
+    from arts_tpu_torch.predefined import PREDEF_MODELS, predefined_absorption
+
+    goldens = json.loads(GOLDENS.read_text())["configs"]
+    kw64 = dict(device=dev, dtype=torch.float64)
+    worst = {}
+    for cfg in goldens:
+        vmrs = {GOLDEN_VMR[cfg["model"]]: cfg["vmr"]}
+        for key, spec in (("vmr_h2o", "H2O"), ("vmr_o2", "O2"), ("vmr_n2", "N2")):
+            if key in cfg:
+                vmrs[spec] = cfg[key]
+        got = predefined_absorption((cfg["model"],), np.asarray(cfg["f_hz"], float), cfg["t"],
+                                    cfg["p"], vmrs, **kw64).cpu()
+        want = torch.tensor(cfg["alpha"], dtype=torch.float64)
+        rtol = GOLDEN_RTOL.get(cfg["model"], 1e-10)
+        close(got, want, rtol, 1e-12, f"golden {cfg['model']} T {cfg['t']}")
+        r = float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+        worst[cfg["model"]] = max(worst.get(cfg["model"], 0.0), r)
+    log(f"predefined goldens on the card (float64): {len(goldens)} configurations of "
+        f"{len(worst)} models, largest relative difference per model "
+        f"{ {k: f'{v:.1e}' for k, v in worst.items()} } (rtol 1e-10, O2-v1v0 1e-4)")
+
+    t, p, vmrs = _predef_points(dev, torch.float64)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    for name in [n for n in PREDEF_MODELS if n not in worst]:
+        f = _predef_band(name, goldens)
+        got = predefined_absorption((name,), f, t, p, vmrs, **kw64).cpu()
+        want = predefined_absorption((name,), f, t.cpu(), p.cpu(), cpu(vmrs), device="cpu",
+                                     dtype=torch.float64)
+        _, r = close(got, want, 0.0, 1e-12, f"{name} card vs CPU")
+        log(f"predefined {name}: float64 card vs CPU {r:.2e} of scale (limit 1e-12)")
+
+    t32, p32, v32 = _predef_points(dev, torch.float32)
+    f32s = {}
+    for name in PREDEF_MODELS:
+        f = torch.tensor(_predef_band(name, goldens), dtype=torch.float32, device=dev)
+        lo = predefined_absorption((name,), f, t32, p32, v32, device=dev, dtype=torch.float32)
+        hi = predefined_absorption((name,), f.double(), t32.double(), p32.double(),
+                                   {k: v.double() for k, v in v32.items()}, **kw64)
+        _, f32s[name] = close(lo, hi, 0.0, PREDEF_F32_TOL, f"{name} float32")
+    log(f"predefined float32 vs float64 (same inputs, 5 bench levels, own band with table "
+        f"nodes), largest difference of scale per model (limit {PREDEF_F32_TOL}): "
+        f"{ {k: f'{v:.2e}' for k, v in f32s.items()} }")
+
+
+def _allsky_cell(what, scene, f, dev, _cuda, kernels, reps=5):
+    """gas_absorption_profile then simulate_allsky (16 streams, one Fourier
+    mode) in float32, the counts set to 0 just before and read just after
+    `reps` timed calls; the median wall, a profiled call, and float32
+    against the float64 plain route on the same inputs on every 16th
+    frequency (flux_up 3e-3, u0 5e-3 of scale).  Returns the launches."""
+    from arts_tpu_torch import gas_absorption_profile, simulate_allsky
+    from arts_tpu_torch._cuda import move
+
+    kw = dict(device=dev, dtype=torch.float32)
+
+    def call():
+        return simulate_allsky(scene, f, nquad=NQUAD, nfourier=1,
+                               k_gas=gas_absorption_profile(scene, f, **kw), **kw)
+
+    call()  # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_cuda.LAUNCHES)
+    log(f"{what} launches over {reps} calls: {launches}")
+    for name in kernels:
+        require(launches[name] > 0, f"kernel {name} was not launched on the {what}")
+    F, Z = f.shape[0], scene.atm.z.shape[0]
+    require(tuple(out.u0.shape) == (F, Z, NQUAD), f"{what}: u0 shape {tuple(out.u0.shape)}")
+    require(bool(torch.isfinite(out.flux_up).all() and torch.isfinite(out.u0).all()),
+            f"{what}: non-finite output")
+    med = float(np.median(times))
+    lines = 0 if scene.cat is None else scene.cat.n_lines
+    log(f"{what}, float32, {F} freqs x {Z} levels x {lines} lines + {scene.predef}, {NQUAD} "
+        f"streams: median {med:.2f} ms of {reps} ({F / med * 1e3:.1f} points/s); calls "
+        f"{[round(x, 3) for x in times]} ms; {card_line()}")
+    log_profile(f"{what} call", call, 10)
+
+    sub = slice(None, None, 16)
+    scene64, f64 = move(scene, dev, torch.float64), f[sub].double()
+    kw64 = dict(device=dev, dtype=torch.float64, plain=True)
+    ref = simulate_allsky(scene64, f64, nquad=NQUAD, nfourier=1,
+                          k_gas=gas_absorption_profile(scene64, f64, **kw64), **kw64)
+    for key, lim in (("flux_up", 3e-3), ("u0", 5e-3)):
+        r = rel(getattr(out, key)[sub], getattr(ref, key))
+        log(f"{what}: float32 kernels vs float64 plain route (same inputs), {key}: {r:.3e} "
+            f"of scale (limit {lim})")
+        require(r <= lim, f"{what}: {key} {r:.3e} > {lim}")
+    return launches
+
+
+def phase_continuum(dev, _cuda):
+    """The bench scene with its continua (scene.build_continuum_scene: 2048
+    lines + the MT_CKD 3.50 H2O self/foreign and standard N2 continua, 60
+    levels x 4096 frequencies): the continua's share of the absorption,
+    then the all-sky path through _allsky_cell (kernels 1-4)."""
+    from arts_tpu_torch import gas_absorption_profile
+    from arts_tpu_torch.scene import build_continuum_scene
+
+    scene, f = build_continuum_scene(device=dev, dtype=torch.float32)
+    kw = dict(device=dev, dtype=torch.float32)
+    k = gas_absorption_profile(scene, f, **kw)
+    k_lines = gas_absorption_profile(dataclasses.replace(scene, predef=()), f, **kw)
+    share = ((k - k_lines) / k.clamp(min=1e-30)).double()
+    log(f"continuum scene: the continua's share of the absorption, over {tuple(k.shape)} "
+        f"[freq, level]: total {float((k - k_lines).sum() / k.sum()):.4e}, median "
+        f"{float(share.median()):.4e}, largest {float(share.max()):.4e}; median per level "
+        f"(TOA first, every 10th) {[f'{float(x):.3e}' for x in share.median(0).values[::10]]}")
+    require(float((k - k_lines).min()) >= 0.0 and float((k - k_lines).max()) > 0.0,
+            "continuum scene: the continua add nothing")
+    launches = _allsky_cell("continuum main path", scene, f, dev, _cuda,
+                            ("voigt_sum", "disort_stage1", "disort_stage23"))
+
+    # the continua's cost: the scene with and without them, interleaved
+    from arts_tpu_torch import gas_absorption_profile, simulate_allsky
+
+    def call(s):
+        simulate_allsky(s, f, nquad=NQUAD, nfourier=1, k_gas=gas_absorption_profile(s, f, **kw),
+                        **kw)
+        torch.cuda.synchronize()
+
+    lines_only = dataclasses.replace(scene, predef=())
+    ms = {"with": [], "without": []}
+    for _ in range(7):
+        for key, s in (("with", scene), ("without", lines_only)):
+            t0 = time.perf_counter()
+            call(s)
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    med = {key: float(np.median(v)) for key, v in ms.items()}
+    log(f"continuum main path with and without its continua, interleaved, 7 calls each: median "
+        f"{med['with']:.2f} against {med['without']:.2f} ms (+{med['with'] - med['without']:.2f}"
+        f" ms); calls {[[round(x, 2) for x in v] for v in ms.values()]}; {card_line()}")
+    return launches
+
+
+def phase_predef_allsky(dev, _cuda):
+    """The predefined-only all-sky scene at full width
+    (scene.build_predef_scene: example 3's gas models, no catalog, 60
+    levels x 4096 frequencies over 10-200 GHz, the bench cloud) through
+    _allsky_cell (kernels 2-4; no line, so no kernel 1)."""
+    from arts_tpu_torch.scene import build_predef_scene
+
+    scene, f = build_predef_scene(device=dev, dtype=torch.float32)
+    launches = _allsky_cell("predefined-only all-sky", scene, f, dev, _cuda,
+                            ("disort_stage1", "disort_stage23"))
+    require(launches["voigt_sum"] == 0, "the predefined-only scene launched the Voigt kernel")
+    return launches
+
+
+def phase_lookup(dev, _cuda, reps=3):
+    """Lookup-table training at full width (scene.build_lookup_case: the
+    bench's H2O lines, 4096 frequencies, 60 reference levels x 5
+    temperature offsets x 5 water factors = 1500 points): one Voigt-kernel
+    launch of Z = 1500 per training (counts set to 0 just before and read
+    just after the timed trainings); the kernel at that shape against its
+    plain version at three of the points (the phase-voigt tolerances, both
+    dtypes) and its time beside its bound; the table at the 59 check
+    points between the levels within 5 % of direct kernel absorption
+    (tests/test_cia_lookup.py's bound)."""
+    from arts_tpu_torch.lbl.lookup import train_lookup, training_points
+    from arts_tpu_torch.lbl.voigt import absorption_kernel, voigt_sum_args
+    from arts_tpu_torch.ops import voigt_kernel as V
+    from arts_tpu_torch.scene import build_lookup_case
+
+    kw = dict(device=dev, dtype=torch.float32)
+    case = build_lookup_case(**kw)
+    train_lookup(*case.train_args(), **kw)  # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        tbl = train_lookup(*case.train_args(), **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_cuda.LAUNCHES)
+    require(launches["voigt_sum"] == reps, f"lookup training: voigt_sum launches "
+            f"{launches['voigt_sum']} in {reps} trainings (one each)")
+    NT, NW, NP, F = tbl.xsec.shape
+    require(bool(torch.isfinite(tbl.xsec).all()), "lookup table: non-finite entries")
+    log(f"lookup training, float32, {NT} x {NW} x {NP} = {NT * NW * NP} points x {F} freqs x "
+        f"{case.cat.n_lines} lines: median {float(np.median(times)):.2f} ms of {reps} "
+        f"({[round(x, 3) for x in times]} ms), one voigt_sum launch each "
+        f"({launches['voigt_sum']} in {reps}); table {tbl.xsec.numel() * 4 / 1e6:.1f} MB; "
+        f"{card_line()}")
+
+    # kernel 1 at the training shape against its plain version
+    from arts_tpu_torch._cuda import move
+
+    *_, T, P, _, vmr = training_points(case.p_grid, case.t_ref, case.w_ref, case.vmr_ref,
+                                       case.spec_idx, case.t_pert, case.w_pert)
+    n = NT * NW * NP
+    pts = (0, n // 2 + 7, n - 1)
+    kernel = {}
+    for dt, rtol, atol in ((torch.float64, 0.0, 1e-9), (torch.float32, 2e-6, 5e-7)):
+        args = voigt_sum_args(*move((case.f_grid, case.cat, case.pf, T.reshape(-1),
+                                     P.reshape(-1), vmr.reshape(n, -1)), dev, dt))
+        kin, _ = V.voigt_inputs(*args[:9], res=args[9])
+        full = V.voigt_kernel(*kin)
+        torch.cuda.synchronize()
+        for z in pts:
+            want = V.voigt_kernel_plain(*level_slice(kin, z))[0]
+            err, r = close(full[z], want, rtol, atol, f"voigt_sum lookup {dt} point {z}")
+            log(f"voigt_sum {str(dt)[6:]} at the training shape (Z = {n}), point {z}: "
+                f"max|diff| {err:.3e} ({r:.2e} of scale; rtol {rtol}, atol {atol} * scale)")
+        if dt == torch.float32:
+            kernel["ms"] = cuda_ms(lambda: V.voigt_kernel(*kin), 5)
+            counts = V.pair_counts(*kin[:5])
+            pf = V.pair_flops(torch.float32)
+            flops = sum(counts["in_window"][k] * pf[k] for k in pf)
+            kernel["bound_ms"], by = bound(flops, nbytes(*kin) + n * kin[0].shape[0] * 4)
+            log(f"voigt_sum float32 at the training shape: {kernel['ms']:.3f} ms beside bound "
+                f"{kernel['bound_ms']:.4f} ms ({by}); {flops / 1e9:.2f} GFLOP in window; "
+                f"visited pairs {counts['visited']}; {card_line()}")
+        del kin, full
+
+    # the table off its grid against direct absorption
+    a_tab = tbl.absorption(case.T, case.P, case.vmr)
+    a_dir = absorption_kernel(case.f_grid, case.cat, case.pf, case.T, case.P, case.vmr,
+                              no_negative_absorption=False, **kw)
+    rel_err = (a_tab - a_dir).abs() / torch.maximum(
+        a_dir.abs(), a_dir.abs().amax(-1, keepdim=True) * 1e-4)
+    worst = float(rel_err.max())
+    log(f"lookup table at {case.T.shape[0]} off-grid points (between levels, +4.7 K, 1.3 x "
+        f"water) vs direct kernel absorption: largest relative difference {worst:.4f} "
+        f"(limit 0.05), per point median {float(rel_err.amax(-1).median()):.4f}")
+    require(worst < 0.05, f"lookup table off-grid {worst:.4f} >= 0.05")
+    return dict(launches=launches["voigt_sum"], train_ms=float(np.median(times)), **kernel)
+
+
+def phase_cia_xsec(dev):
+    """CIA and cross-section fits on the card, float32 against float64 on the
+    same inputs (the float32 datasets and points, cast up): the CPU tests'
+    cases (tests/test_torch_cia_lookup.py), CIA within 1e-6 of scale (the
+    scaled form: finite in float32), the fits within 1e-6."""
+    from arts_tpu_torch.convert import cia_dataset_from_numpy, xsec_fit_dataset_from_numpy
+    from arts_tpu_torch.lbl.cia import cia_absorption
+    from arts_tpu_torch.lbl.xsec_fit import xsec_fit_absorption
+
+    cf, ct = np.linspace(1e10, 1e12, 21), np.array([200.0, 250.0, 300.0])
+    cia = [dict(f_grid=cf, t_grid=ct, xsec=ct[:, None] * cf[None, :] * 1e-70, spec1=0, spec2=1),
+           dict(f_grid=cf, t_grid=ct, spec1=1, spec2=1,
+                xsec=np.random.default_rng(2).uniform(0.2, 3.0, (3, 21)) * 1e-71)]
+    fq = np.concatenate([cf[::4], np.linspace(5e9, 1.2e12, 37)])
+    pts = (np.array([225.0, 190.0, 310.0, 250.0]), np.array([1e5, 5e4, 8e4, 2e3]),
+           np.array([[0.2, 0.8], [0.5, 0.5], [0.01, 0.99], [0.3, 0.7]]))
+    rng = np.random.default_rng(5)
+    c0 = np.zeros((11, 4))
+    c0[:, 0], c0[:, 1] = 1e-24, 1e-27
+    xs = [dict(f_grid=np.linspace(1e13, 2e13, 11), coeffs=c0, spec_idx=0),
+          dict(f_grid=np.linspace(1.2e13, 1.8e13, 17), spec_idx=1,
+               coeffs=rng.normal(size=(17, 4)) * [1e-24, 1e-27, 1e-30, 1e-29])]
+    xf = np.concatenate([np.linspace(1e13, 2e13, 11), np.linspace(0.9e13, 2.1e13, 29)])
+    xpts = (np.array([250.0, 210.0, 290.0, 230.0]), np.array([1e4, 3e4, 9e4, 5e2]),
+            np.array([[1e-6, 2e-6], [3e-6, 1e-7], [1e-5, 5e-6], [2e-7, 2e-7]]))
+    for what, build, fn, sets, f, (T, P, vmr) in (
+            ("CIA", cia_dataset_from_numpy, cia_absorption, cia, fq, pts),
+            ("cross-section fit", xsec_fit_dataset_from_numpy, xsec_fit_absorption, xs, xf,
+             xpts)):
+        t32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+        ds32 = [build(d, device=dev, dtype=torch.float32) for d in sets]
+        out = {dt: fn(ds32, t32(f), t32(T), t32(P), t32(vmr), device=dev, dtype=dt)
+               for dt in (torch.float32, torch.float64)}
+        require(float(out[torch.float64].abs().max()) > 0.0, f"{what}: zero")
+        _, r = close(out[torch.float32], out[torch.float64], 0.0, 1e-6, f"{what} float32")
+        log(f"{what} on the card: float32 vs float64 (same inputs) {r:.2e} of scale "
+            f"(limit 1e-6), {tuple(out[torch.float32].shape)}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1980,6 +2337,16 @@ def main():
         "clearsky_measurement": phase_clearsky_measurement(dev, _cuda)["voigt_sum"]}
     eigh["launches"] = phase_retrieval(dev, _cuda)["eigh_jacobi"]
     kernels += [eigh, fused_eigen]
+    torch.cuda.empty_cache()
+    phase_predef(dev)
+    phase_cia_xsec(dev)
+    kernels[0]["launches_on"]["continuum_main_path"] = phase_continuum(dev, _cuda)["voigt_sum"]
+    torch.cuda.empty_cache()
+    phase_predef_allsky(dev, _cuda)
+    torch.cuda.empty_cache()
+    lookup = phase_lookup(dev, _cuda)
+    kernels[0]["launches_on"]["lookup_training"] = lookup["launches"]
+    kernels[0]["lookup_training"] = {k: lookup[k] for k in ("ms", "bound_ms", "train_ms")}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

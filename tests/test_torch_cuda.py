@@ -541,3 +541,57 @@ def test_sensor_contraction_float32_runs_bit_identical(dev):
                                      observer=clearsky_observer_cached(backend="pallas"),
                                      device=dev)
     assert torch.equal(run(), run())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_predef_goldens_and_float32_on_the_card(dev, dtype):
+    """The 22 predefined models with goldens on the card against the 58
+    in-repo goldens (float64, the CPU test's tolerances: rtol 1e-10, atol
+    1e-12 * scale, O2-v1v0 rtol 1e-4); in float32 against the card's
+    float64 on the same inputs at 1e-5 of scale."""
+    import json
+    import pathlib
+
+    from arts_tpu_torch.predefined import predefined_absorption
+
+    keys = {"liquidcloud-ELL07": "liquidcloud"}
+    configs = json.loads((pathlib.Path(__file__).parent / "goldens" /
+                          "predef_goldens.json").read_text())["configs"]
+    for cfg in configs:
+        name = cfg["model"]
+        vmrs = {keys.get(name, name.split("-")[0]): cfg["vmr"]}
+        for key, spec in (("vmr_h2o", "H2O"), ("vmr_o2", "O2"), ("vmr_n2", "N2")):
+            if key in cfg:
+                vmrs[spec] = cfg[key]
+        f = torch.tensor(cfg["f_hz"], dtype=dtype, device=dev)
+        run = lambda dt: predefined_absorption((name,), f, cfg["t"], cfg["p"], vmrs,
+                                               device=dev, dtype=dt).double().cpu().numpy()
+        got, hi = run(dtype), run(torch.float64)
+        if dtype == torch.float64:
+            want = np.asarray(cfg["alpha"])
+            rtol = 1e-4 if name == "O2-v1v0CKDMT100" else 1e-10
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-12 * np.abs(want).max(),
+                                       err_msg=name)
+        else:
+            assert np.abs(got - hi).max() <= 1e-5 * np.abs(hi).max(), name
+
+
+@pytest.mark.parametrize("dtype, rtol, atol", [(torch.float64, 0.0, 1e-9),
+                                               (torch.float32, 2e-6, 5e-7)])
+def test_lookup_training_kernel_matches_plain(dev, dtype, rtol, atol):
+    """train_lookup on the card (one Voigt-kernel launch for all 5 x 5 x 12
+    points) against its plain version on the CPU on the same inputs, at
+    the Voigt kernel test's bounds of the table's scale."""
+    from arts_tpu_torch import _cuda
+    from arts_tpu_torch._cuda import move
+    from arts_tpu_torch.lbl.lookup import train_lookup
+    from arts_tpu_torch.scene import build_lookup_case
+
+    case = build_lookup_case(n_lev=12, n_freq=1024, n_lines=256, device=dev, dtype=dtype)
+    _cuda.reset_launches()
+    got = train_lookup(*case.train_args(), device=dev, dtype=dtype).xsec
+    assert _cuda.LAUNCHES["voigt_sum"] == 1
+    args = move(case.train_args(), torch.device("cpu"), dtype)
+    want = train_lookup(*args, device="cpu", dtype=dtype).xsec
+    got, want = got.double().cpu(), want.double()
+    assert bool(((got - want).abs() <= atol * want.abs().max() + rtol * want.abs()).all())

@@ -100,9 +100,42 @@ def _entry_points():
     from arts_tpu_torch.disort.brdf import hapke_brdf, surface_brdf_modes
     from arts_tpu_torch.scene import build_beam_case, build_solar_scene, build_sun_camera
 
+    from arts_tpu_torch.convert import (
+        cia_dataset_from_numpy,
+        clearsky_scene_from_numpy,
+        lookup_table_from_numpy,
+        mtckd_data_from_numpy,
+        xsec_fit_dataset_from_numpy,
+    )
+    from arts_tpu_torch.lbl.cia import cia_absorption
+    from arts_tpu_torch.lbl.lookup import train_lookup
+    from arts_tpu_torch.lbl.xsec_fit import xsec_fit_absorption
+    from arts_tpu_torch.predefined import mt_ckd400, predefined_absorption
+    from arts_tpu_torch.scene import build_continuum_scene, build_lookup_case, build_predef_scene
+
     lines = lambda: read_par(synth_par_rows(4), ["H2O", "O2"])
     zrows = lambda: synth_par_rows(4)
+    mtckd = {name: (lambda fn: lambda o: fn([1e13], 280.0, 9e4, {"H2O": 0.01}, None))(
+        getattr(mt_ckd400, name)) for name in (
+        "h2o_self_mtckd400", "h2o_foreign_mtckd400", "h2o_self_mtckd430",
+        "h2o_foreign_mtckd430", "h2o_foreign_closure_mtckd430")}
     return {
+        **mtckd,
+        "predefined_absorption": lambda o: predefined_absorption(
+            ("H2O-PWR98",), [22e9], 280.0, 9e4, {"H2O": 0.01}),
+        "cia_absorption": lambda o: cia_absorption((), [1e11], 280.0, 9e4, [0.2, 0.8]),
+        "xsec_fit_absorption": lambda o: xsec_fit_absorption((), [1e13], 280.0, 9e4, [1e-6]),
+        "train_lookup": lambda o: train_lookup(o[1], o[0].cat, o[0].pf, [1e5, 5e4],
+                                               [280.0, 260.0], [0.01, 0.005], [0.01, 0.2], 0,
+                                               [0.0], [1.0]),
+        "cia_dataset_from_numpy": lambda o: cia_dataset_from_numpy({}),
+        "xsec_fit_dataset_from_numpy": lambda o: xsec_fit_dataset_from_numpy({}),
+        "lookup_table_from_numpy": lambda o: lookup_table_from_numpy({}),
+        "mtckd_data_from_numpy": lambda o: mtckd_data_from_numpy({}),
+        "clearsky_scene_from_numpy": lambda o: clearsky_scene_from_numpy({}),
+        "build_continuum_scene": lambda o: build_continuum_scene(n_lev=3, n_freq=8, n_lines=4),
+        "build_predef_scene": lambda o: build_predef_scene(n_lev=3, n_freq=8),
+        "build_lookup_case": lambda o: build_lookup_case(n_lev=3, n_freq=8, n_lines=4),
         "igrf13": lambda o: igrf13(60.0, 0.0, 0.0),
         "dipole_field": lambda o: dipole_field(60.0, 0.0, 0.0),
         "magnetic_profile": lambda o: magnetic_profile(np.linspace(0.0, 1e4, 3)),
