@@ -63,12 +63,15 @@ def resolve(device=None, dtype=None):
 
 def move(obj, device, dtype):
     """Copy of a frozen dataclass (or tuple) of tensors on `device`, its
-    floating tensors cast to `dtype`; integer tensors keep their type."""
+    floating tensors cast to `dtype`; integer tensors keep their type, and
+    a dataclass with a `fixed_dtype` class attribute keeps its floating
+    tensors in that dtype (lbl.ecs.EcsBand: float64)."""
     if isinstance(obj, torch.Tensor):
         return obj.to(device=device, dtype=dtype if obj.is_floating_point() else None)
     if isinstance(obj, tuple):
         return tuple(move(o, device, dtype) for o in obj)
     if dataclasses.is_dataclass(obj):
+        dtype = getattr(obj, "fixed_dtype", dtype)
         return dataclasses.replace(obj, **{
             f.name: move(getattr(obj, f.name), device, dtype)
             for f in dataclasses.fields(obj)

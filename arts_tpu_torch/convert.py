@@ -20,7 +20,9 @@ clearsky_scene_from_numpy takes a clear-sky scene the same way:
      "surface_temperature": scalar,
      "surface_emissivity": scalar (optional, default 1),
      "nlte": {"z", "r", "cat", "up_idx", "lo_idx"} (optional),
-     "predef", "species_names" (optional, as above)}
+     "predef", "species_names" (optional, as above),
+     "ecs_bands": [(band, spec_idx, iso_idx, iso_ratio), ...] (optional;
+     band ecs_band_from_numpy's dict)}
 
 and zeeman_scene_from_numpy a polarized one:
 
@@ -31,7 +33,9 @@ and zeeman_scene_from_numpy a polarized one:
      "nlte": {...} (optional)}
 
 sensor_from_numpy a sensor's weights: {"row", "geo", "freq", "w",
-"n_elements"}.  zeeman_catalog_from_numpy and
+"n_elements"}.  ecs_band_from_numpy an ECS line-mixing band: its fields
+(lbl.ecs.EcsBand) as numpy arrays and direct_at_ji as a bool, kept in
+float64 whatever the dtype.  zeeman_catalog_from_numpy and
 padded_zeeman_catalog_from_numpy take a Zeeman catalog and its bucketed
 form the same way.  cia_dataset_from_numpy, xsec_fit_dataset_from_numpy,
 lookup_table_from_numpy and mtckd_data_from_numpy take the absorption
@@ -50,6 +54,7 @@ from .fwd import ClearskyScene, ZeemanScene
 from .fwd_allsky import AllskyScene
 from .lbl.catalog import catalog_from_arrays
 from .lbl.cia import LOSCHMIDT, CIADataset
+from .lbl.ecs import ecs_band_from_numpy
 from .lbl.lookup import AbsLookupTable
 from .lbl.nlte import NlteField
 from .lbl.partfun import PartFunTable
@@ -95,6 +100,8 @@ def clearsky_scene_from_numpy(d, device=None, dtype=None) -> ClearskyScene:
         surface_emissivity=t(d.get("surface_emissivity", 1.0)),
         predef=tuple(d.get("predef", ())), species_names=tuple(d.get("species_names", ())),
         nlte=None if d.get("nlte") is None else nlte_field_from_numpy(d["nlte"], dev, dt),
+        ecs_bands=tuple((ecs_band_from_numpy(b, dev), int(s), int(i), float(r))
+                        for b, s, i, r in d.get("ecs_bands", ())),
     )
 
 

@@ -13,12 +13,12 @@ keeps them.  Everything is differentiable by autograd and torch.func.
 The gas absorption of a scene is its line catalog plus its predefined
 models (scene.predef, the continua and full models of
 predefined/models.py, with scene.species_names naming the rows of the
-VMRs), assembled in species_absorption for every caller.  A non-LTE band
+VMRs) plus its ECS line-mixing bands (scene.ecs_bands, lbl.ecs),
+assembled in species_absorption for every caller.  A non-LTE band
 (scene.nlte, lbl.nlte.NlteField) adds its absorption to K and its
 emission excess S to the source, J = B + K^-1 S, in the scalar and the
-polarized radiance.  Not ported yet (each raises NotImplementedError):
-ECS line-mixing bands (ROADMAP §A 5) and the sun in the pencil beam
-(§A 7).
+polarized radiance.  Not ported yet: the sun in the pencil beam (ROADMAP
+§A 7), which raises NotImplementedError.
 """
 
 import dataclasses
@@ -29,6 +29,7 @@ from . import constants as const
 from ._cuda import move, resolve
 from .atm import Atmosphere1D
 from .lbl.catalog import LineCatalog
+from .lbl.ecs import ecs_absorption
 from .lbl.partfun import PartFunTable
 from .lbl.nlte import nlte_absorption_source
 from .lbl.voigt import absorption, absorption_kernel
@@ -60,11 +61,6 @@ def _emission_fn_polarized(rte_option: str):
     }[check_option(RteOption, rte_option)]
 
 
-def _refuse_unported(scene):
-    if getattr(scene, "ecs_bands", ()):
-        raise NotImplementedError("ECS line-mixing bands are not ported yet (ROADMAP §A 5)")
-
-
 def species_absorption(scene, fg, t, p, v, block: int = 256, backend: str = "xla",
                        plain: bool = False):
     """Gas absorption [..., F] at the points t, p [...], v [..., S]: the
@@ -72,8 +68,9 @@ def species_absorption(scene, fg, t, p, v, block: int = 256, backend: str = "xla
     in blocks of `block`; fg [F] or one grid per point [..., F]) or through
     the Voigt kernel (backend "pallas": its plain version on CPU tensors,
     or anywhere with plain=True; fg [F]), plus the scene's predefined
-    models (scene.predef, VMRs by scene.species_names) on either."""
-    _refuse_unported(scene)
+    models (scene.predef, VMRs by scene.species_names) and its ECS bands
+    (scene.ecs_bands, each (band, spec_idx, iso_idx, iso_ratio), the band
+    matrix in float64 whatever the dtype) on either."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"species_absorption: backend {backend!r} (xla, pallas)")
     a = torch.zeros(torch.broadcast_shapes(t.shape + (1,), fg.shape), dtype=fg.dtype,
@@ -91,6 +88,8 @@ def species_absorption(scene, fg, t, p, v, block: int = 256, backend: str = "xla
         vmrs = {tag: v[..., i] for i, tag in enumerate(scene.species_names)}
         a = a + predefined_absorption(scene.predef, fg, t, p, vmrs, device=fg.device,
                                       dtype=fg.dtype)
+    for band, sidx, iidx, irat in getattr(scene, "ecs_bands", ()):
+        a = a + ecs_absorption(fg, band, scene.pf, iidx, t, p, v[..., sidx], irat)
     return a
 
 
@@ -100,9 +99,10 @@ class ClearskyScene:
     predefined absorption models (predefined.PREDEF_MODELS) added to the
     catalog's lines; species_names names the rows of atm.vmr; cat and pf
     may be None (predefined models only).  nlte is an optional non-LTE
-    band (lbl.nlte.NlteField).  ecs_bands is the JAX package's field for
-    ECS line-mixing bands, which the port cannot evaluate yet: a scene
-    that sets it raises NotImplementedError."""
+    band (lbl.nlte.NlteField).  ecs_bands holds ECS line-mixing bands,
+    ((lbl.ecs.EcsBand, spec_idx, iso_idx, iso_ratio), ...), evaluated at
+    every point like the catalog; pf must then hold their
+    isotopologues."""
 
     atm: Atmosphere1D
     cat: LineCatalog | None

@@ -1,5 +1,5 @@
-"""Quantum states of transitions and the Zeeman g factors derived from them
-(port of arts_tpu/io/quantum.py, without the ECS band construction).
+"""Quantum states of transitions, the Zeeman g factors derived from them and
+the lines of a linear-molecule ECS band (port of arts_tpu/io/quantum.py).
 
 States are maps of quantum-number names to exact rationals, upper and
 lower, after ARTS's Quantum::State: parsed from the extended .par
@@ -230,3 +230,23 @@ def zeeman_g(isotopologue: str, state: QuantumState):
                 lev.setdefault("S", Fraction(1))
         g = _simple_g(species, QuantumState(upper=up, lower=lo))
     return g if g is not None else (0.0, 0.0)
+
+
+def linear_band_lines_from_quanta(records, states):
+    """lbl.ecs.make_linear_band line dicts from HitranRecords and their
+    QuantumStates: Ji, Jf from the J quanta, the band's (li, lf) from the
+    l2 vibrational angular momenta (0 when untagged); states without J are
+    skipped.  Returns (lines, li, lf)."""
+    lines = []
+    l_up, l_lo = Fraction(0), Fraction(0)
+    for r, st in zip(records, states):
+        if not st.has("J"):
+            continue
+        ju, jl = st.at("J")
+        if "l2" in st.upper:
+            l_up, l_lo = st.at("l2")
+        lines.append(dict(
+            f0=r.f0, a=r.A, e0=r.e0, gu=r.g_upp, Ji=float(ju), Jf=float(jl),
+            g0=(r.gamma_air, r.n_air), d0=(r.delta_air, 0.0), t0=296.0,
+        ))
+    return lines, float(l_up), float(l_lo)

@@ -1,5 +1,6 @@
 """Isotopologue registry: the ISOTOPOLOGUES table of arts_tpu/io/species.py,
-copied so the port imports nothing of arts_tpu."""
+copied so the port imports nothing of arts_tpu, with register_isotopologue
+and split_tag."""
 
 import dataclasses
 
@@ -70,3 +71,16 @@ ISOTOPOLOGUES = {
         IsotopologueMeta("Ar-8", "Ar", 39.962383, 0.996035),
     ]
 }
+
+
+def register_isotopologue(name, species, mass, abundance):
+    """Add (or replace) an isotopologue in the registry."""
+    ISOTOPOLOGUES[name] = IsotopologueMeta(name, species, mass, abundance)
+
+
+def split_tag(tag: str):
+    """'H2O-161' -> ('H2O', '161'); 'H2O' -> ('H2O', None)."""
+    if "-" in tag:
+        spec, iso = tag.split("-", 1)
+        return spec, iso
+    return tag, None

@@ -1,18 +1,43 @@
 """Line catalog as a padded struct of tensors (port of arts_tpu/lbl/catalog.py:
-LineCatalog and build_catalog)."""
+Cutoff, SpeciesMeta, LineCatalog, build_catalog, concat_catalogs, hitran_s
+and keep_strongest)."""
 
 import dataclasses
+from enum import IntEnum
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from .. import constants as const
 from .._cuda import resolve
 from .tmodel import NV, VARS
+
+
+class Cutoff(IntEnum):
+    NONE = 0
+    BY_LINE = 1  # subtract the shape's value at f0 +/- cutoff, zero outside
+
 
 # sentinel perturber indices in ls_spec
 BATH = -2
 PAD = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeciesMeta:
+    """Host-side description of the species and isotopologue tables."""
+
+    species: tuple  # species tag names, index = position in the VMR vector
+    isotopologues: tuple  # (species_idx, name, mass [g/mol], abundance) rows
+
+    @property
+    def n_species(self):
+        return len(self.species)
+
+    @property
+    def n_iso(self):
+        return len(self.isotopologues)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,12 +64,17 @@ class LineCatalog:
     def n_lines(self):
         return self.f0.shape[0]
 
+    @property
+    def n_perturbers(self):
+        return self.ls_spec.shape[1]
 
-def catalog_arrays(lines: Sequence[dict]):
+
+def catalog_arrays(lines: Sequence[dict], n_perturbers: int | None = None):
     """The LineCatalog fields as numpy arrays (float64 and int64) from a
-    list of per-line dicts (read_par's output)."""
+    list of per-line dicts (read_par's output), with n_perturbers slots
+    (None: as many as the line with the most)."""
     L = len(lines)
-    P = max(1, max(len(ln.get("ls", {})) for ln in lines))
+    P = n_perturbers or max(1, max(len(ln.get("ls", {})) for ln in lines))
 
     def arr(key, default=0.0):
         return np.array([ln.get(key, default) for ln in lines], dtype=np.float64)
@@ -83,7 +113,50 @@ def catalog_from_arrays(d, device, dtype):
     return LineCatalog(**{f.name: t(d[f.name]) for f in dataclasses.fields(LineCatalog)})
 
 
-def build_catalog(lines: Sequence[dict], device=None, dtype=None):
+def build_catalog(lines: Sequence[dict], n_perturbers: int | None = None, device=None,
+                  dtype=None):
     """LineCatalog from per-line dicts (host side)."""
     dev, dt = resolve(device, dtype)
-    return catalog_from_arrays(catalog_arrays(lines), dev, dt)
+    return catalog_from_arrays(catalog_arrays(lines, n_perturbers), dev, dt)
+
+
+def concat_catalogs(cats: Sequence[LineCatalog]) -> LineCatalog:
+    """The catalogs' lines one after another, perturber slots padded to the
+    widest (PAD, law 0)."""
+    P = max(c.n_perturbers for c in cats)
+    pad = torch.nn.functional.pad
+
+    def padp(c):
+        dp = P - c.n_perturbers
+        if dp == 0:
+            return c
+        return dataclasses.replace(c, ls_spec=pad(c.ls_spec, (0, dp), value=PAD),
+                                   ls_law=pad(c.ls_law, (0, 0, 0, dp)),
+                                   ls_x=pad(c.ls_x, (0, 0, 0, 0, 0, dp)))
+
+    cats = [padp(c) for c in cats]
+    return LineCatalog(**{f.name: torch.cat([getattr(c, f.name) for c in cats])
+                          for f in dataclasses.fields(LineCatalog)})
+
+
+def hitran_s(cat: LineCatalog, q296_per_line, T0: float = 296.0):
+    """HITRAN-convention intensities S(T0) [Hz m^2] of every line (numpy,
+    float64): the inverse of the Einstein-A conversion, weighted by the
+    isotopologue abundance; q296_per_line is Q(T0) per line or one
+    value."""
+    f0, a, gu, e0, ratio = (getattr(cat, k).detach().cpu().double().numpy()
+                            for k in ("f0", "a", "gu", "e0", "iso_ratio"))
+    q = np.broadcast_to(np.asarray(q296_per_line, dtype=np.float64), f0.shape)
+    s_lte = a * gu * np.exp(-e0 / (const.k * T0)) / (f0**3 * q)
+    scl = -f0 * np.expm1(-const.h * f0 / (const.k * T0)) * (const.c**2 / (8.0 * np.pi))
+    return ratio * s_lte * scl
+
+
+def keep_strongest(cat: LineCatalog, q296_per_line, percentile: float):
+    """The catalog without the weakest `percentile` % of its lines by
+    HITRAN intensity (hitran_s)."""
+    s = hitran_s(cat, q296_per_line)
+    keep = torch.as_tensor(np.nonzero(s >= np.percentile(s, percentile))[0],
+                           device=cat.f0.device)
+    return dataclasses.replace(cat, **{f.name: getattr(cat, f.name)[keep]
+                                       for f in dataclasses.fields(LineCatalog)})

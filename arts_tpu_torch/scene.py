@@ -23,6 +23,10 @@ build_continuum_scene is the benchmark scene with its continua added to
 the lines, build_predef_scene an all-sky scene of the JAX package's
 example gas models without a catalog, and build_lookup_case a lookup
 table's training inputs on the benchmark and its check points.
+build_ecs_scene is a clear-sky 50-70 GHz scene whose O2 band is one ECS
+line-mixing band (o2_ecs_par_rows: the 38 lines of O2-MPM2020 as .par
+rows), build_ecs_measurement an ATMS temperature-sounding scan line over
+it.
 """
 
 import dataclasses
@@ -42,14 +46,23 @@ from .disort.quadrature import double_gauss, lambda_tables
 from .disort.solver import solve_terms
 from .fwd import ClearskyScene, ZeemanScene, simulate_clearsky
 from .fwd_allsky import AllskyScene, gas_absorption_profile, simulate_allsky
-from .io.hitran import read_par, zeeman_catalog_from_par
-from .lbl.catalog import build_catalog
+from .io.hitran import (
+    einstein_a_from_s,
+    o2_lines_from_par,
+    read_par,
+    read_par_records,
+    zeeman_catalog_from_par,
+)
+from .io.species import ISOTOPOLOGUES
+from .lbl.catalog import build_catalog, hitran_s
+from .lbl.ecs import make_o2_band, o2_erot
 from .lbl.nlte import NlteField, boltzmann_ratios, nlte_fit_profile
 from .lbl.partfun import rigid_rotor_table
 from .lbl.tmodel import Law
 from .lbl.zeeman import pad_zeeman_catalog, tune_zeeman_profile
 from .path import PathGeometry, geometric_path_1d
 from .ops.zeeman_mp_kernel import MP_TERMS, NCOMP, pole_records
+from .predefined.models import _M20_C, _M20_F0, _M20_GA
 from .retrieval import covariance
 from .retrieval.targets import RetrievalTarget, StateMapping
 from .scattering import HenyeyGreenstein
@@ -704,3 +717,114 @@ def build_clearsky_retrieval(n_lev=51, device=None, dtype=None):
     y = case.forward(case.x_true).double()
     noise = 1e-4 * float(y.abs().mean())
     return dataclasses.replace(case, y_obs=y, S_e=torch.full_like(y, noise**2))
+
+
+# ---------------------------------------------------------------------------
+# The 60 GHz O2 band by ECS line mixing, and an ATMS scan line over it
+# ---------------------------------------------------------------------------
+# O2-66: Q(296 K) of the scene's rigid-rotor table, abundance, mass
+O2_Q296 = 215.7
+O2_66 = ISOTOPOLOGUES["O2-66"]
+# the gas models beside the band: examples 1 and 3 without O2-PWR98
+ECS_PREDEF = ("H2O-PWR98", "N2-SelfContStandardType")
+ECS_SPECIES = ("H2O", "O2", "N2")
+# ATMS temperature channels 3-9: centre, fwhm (GHz); channel 7's two
+# passbands at 53.596 -+ 0.115 GHz each its own element
+ATMS_TEMP_CHANNELS = ((50.3, 0.18), (51.76, 0.4), (52.8, 0.4), (53.481, 0.17),
+                      (53.711, 0.17), (54.4, 0.4), (54.94, 0.4), (55.5, 0.33))
+
+
+def o2_ecs_par_rows():
+    """The 38 lines of O2-MPM2020 (predefined/models.py, Makarov et al.
+    2020) as HITRAN .par rows of O2-66 with O2 local quanta.
+
+    Line j of the table (118.75 GHz first, then 56.26 GHz, ...) is N-
+    for even j and N+ for odd j, N = 2 (j // 2) + 1: upper state (N, J =
+    N), lower state (N, J = N - 1) for N- and (N, J = N + 1) for N+,
+    lower energy o2_erot(N, J''), g = 2 J + 1.  Centres from _M20_F0, air
+    widths from _M20_GA [GHz/bar at 300 K] as gamma_air(296 K) = GA (300 /
+    296)^0.754 with n_air = 0.754, MPM2020's own temperature exponent, and
+    no shift (MPM2020's shift is second order in pressure).
+
+    Strengths: without mixing, MPM2020's line j integrates over frequency
+    to conv C_j F0_j[GHz] p[bar] pi 1e9 [Hz/m] per unit O2 VMR at 300 K,
+    conv = 0.1820e-7 / (2.0946 log10(e)) (models.o2_mpm2020), so its
+    abundance-weighted intensity is S_j(300 K) = conv C_j F0_j pi 1e9
+    k 300 / 1e5 [Hz m^2].  A follows from S(300 K) with Q(300 K)
+    (io.hitran.einstein_a_from_s at T0 = 300 K); the rows carry that A and
+    S(296 K) from it (lbl.catalog.hitran_s)."""
+    conv = 0.1820e-7 / (2.0946 * np.log10(np.e))
+    kayser = 100.0 * const.c  # cm^-1 -> Hz
+    gamma = _M20_GA * 1e4 * (300.0 / 296.0) ** 0.754 * 101325.0 / kayser  # cm^-1/atm
+    N = 2 * (np.arange(_M20_F0.size) // 2) + 1
+    Jl = np.where(np.arange(_M20_F0.size) % 2 == 0, N - 1, N + 1)
+    f0, gu, gl = _M20_F0 * 1e9, 2.0 * N + 1.0, 2.0 * Jl + 1.0
+    e0 = np.array([o2_erot(float(n), float(j)) for n, j in zip(N, Jl)])
+    s300 = conv * _M20_C * _M20_F0 * np.pi * 1e9 * const.k * 300.0 / 1e5
+    a = np.array([einstein_a_from_s(*args, O2_Q296 * 300.0 / 296.0, O2_66.abundance, T0=300.0)
+                  for args in zip(s300, gu, e0, f0)])
+    cat = build_catalog([dict(f0=x, a=y, gu=g, e0=e, iso_ratio=O2_66.abundance)
+                         for x, y, g, e in zip(f0, a, gu, e0)], device="cpu", dtype=torch.float64)
+    s296 = hitran_s(cat, O2_Q296)
+    rows = []
+    for j in range(f0.size):
+        loc = f"  Q {N[j]:2d}  {'R' if Jl[j] < N[j] else 'P'} {Jl[j]:2d}   "
+        row = (
+            " 71" + f"{f0[j] / kayser:12.6f}" + f"{s296[j] / (kayser * 1e-4):10.3E}"
+            + f"{a[j]:10.3E}" + f"{gamma[j]:.4f}"[1:] * 2 + f"{e0[j] / (const.h * kayser):10.4f}"
+            + ".754" + f"{0.0:8.6f}" + " " * 45 + loc.ljust(15)
+        ).ljust(146) + f"{gu[j]:7.1f}" + f"{gl[j]:7.1f}"
+        rows.append(row)
+    return rows
+
+
+def build_ecs_scene(n_lev=60, n_freq=4096, device=None, dtype=None):
+    """(ClearskyScene, f_grid) of the 60 GHz O2 band by ECS line mixing:
+    the benchmark's atmosphere (n_lev levels to 80 km) with rows H2O, O2
+    and N2, n_freq frequencies over 50-70 GHz, a 288 K black surface, the
+    gas models of the JAX package's examples 1 and 3 with O2 taken by one
+    ECS band in place of O2-PWR98: H2O-PWR98 and the N2 continuum
+    (ECS_PREDEF) beside the band of o2_ecs_par_rows' 38 lines, read back
+    through read_par_records and o2_lines_from_par into make_o2_band
+    (Makarov 2020 air coefficients), O2-66 at its abundance."""
+    dev, dt = resolve(device, dtype)
+    atm = standard_atmosphere(n_levels=n_lev, z_top=80e3, species=ECS_SPECIES, device=dev,
+                              dtype=dt)
+    lines, _, _ = o2_lines_from_par(read_par_records(o2_ecs_par_rows()), O2_Q296,
+                                    zeeman=False)
+    band = make_o2_band(lines, mass=O2_66.mass, device=dev)
+    scene = ClearskyScene(
+        atm=atm, cat=None, pf=rigid_rotor_table(1, O2_Q296, 1.0, device=dev, dtype=dt),
+        surface_temperature=torch.tensor(288.0, dtype=dt, device=dev),
+        surface_emissivity=torch.tensor(1.0, dtype=dt, device=dev),
+        predef=ECS_PREDEF, species_names=ECS_SPECIES,
+        ecs_bands=((band, ECS_SPECIES.index("O2"), 0, O2_66.abundance),),
+    )
+    return scene, torch.as_tensor(np.linspace(50e9, 70e9, n_freq), dtype=dt, device=dev)
+
+
+def build_ecs_measurement(n_lev=60, n_freq=4096, n_scan=96, max_step=1000.0, device=None,
+                          dtype=None):
+    """One ATMS scan line over build_ecs_scene (surface emissivity 0.9), as
+    build_clearsky_measurement builds its own: n_scan beam positions over
+    +-52.725 deg from 824 km, each a path to the surface in steps of at
+    most max_step, and ATMS's temperature channels 3-9 (50.3, 51.76, 52.8,
+    53.596 -+ 0.115, 54.4, 54.94, 55.5 GHz; fwhm 180, 400, 400, 170, 400,
+    400, 330 MHz) as Gaussian elements, channel 7's passbands each its
+    own: 8 elements per position, in position order.  Channels 10-15 need
+    a finer grid near 57.29 GHz."""
+    dev, dt = resolve(device, dtype)
+    scene, f = build_ecs_scene(n_lev, n_freq, device=dev, dtype=dt)
+    scene = dataclasses.replace(scene, surface_emissivity=torch.tensor(0.9, dtype=dt,
+                                                                       device=dev))
+    scan = np.linspace(-ATMS_SCAN_DEG, ATMS_SCAN_DEG, n_scan)
+    z_top = float(scene.atm.z[-1])
+    paths = tuple(geometric_path_1d(ATMS_ORBIT, 180.0 - abs(a), 0.0, z_top, max_step)
+                  for a in scan)
+    centers, fwhm = (np.asarray(c) * 1e9 for c in zip(*ATMS_TEMP_CHANNELS))
+    sensor = gaussian_channels(f.double().cpu().numpy(), np.tile(centers, n_scan),
+                               np.tile(fwhm, n_scan),
+                               geo_idx=np.repeat(np.arange(n_scan), centers.size),
+                               device=dev, dtype=dt)
+    return ClearskyMeasurement(scene=scene, f_grid=f, paths=paths, sensor=sensor,
+                               scan_deg=scan)

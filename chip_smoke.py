@@ -154,7 +154,25 @@
    float32 rtol 2e-6 and 5e-7 of scale) with its time and bound, and the
    table at 59 points between the levels within 5 % of direct kernel
    absorption;
-13. prints each kernel's launches on its path, time, plain-version time,
+13. (after phase 12) ECS line mixing (phase_ecs, scene.build_ecs_scene:
+   the 60 GHz O2 band as one ECS band of 38 lines beside H2O-PWR98 and
+   the N2 continuum, 60 levels x 4096 frequencies over 50-70 GHz; no
+   kernel of the eight lies on this path, and its launch counts, set to 0
+   just before and read just after, are printed): ecs_absorption in
+   float32 against float64 on the same inputs (the float32 scene cast
+   up), each level within 1e-5 of its largest value, the largest gap per
+   level printed top first; the complex-symmetric Jacobi (eig_comp_sym)
+   against torch.linalg.eig on the 60 band matrices, eigenvalues within
+   1e-10 of the largest, both timed; simulate_clearsky on a nadir path
+   from the top of the atmosphere and measurement_vector over an ATMS
+   50-55 GHz scan line (scene.build_ecs_measurement: 96 positions,
+   channels 3-9, the level-cached observer) in float32 against the
+   float64 route on the same inputs, within 1e-4 of scale; the medians of
+   5 float32 calls of each and of the absorption, a profiled call of the
+   scan line (device operations, busy share), the peak memory, and the
+   band's area at the surface within 10 % of O2-MPM2020's on the same
+   grid;
+14. prints each kernel's launches on its path, time, plain-version time,
    library time, largest difference and bound as one JSON line (kernel
    1's launches on each of its paths under launches_on, and its time and
    bound at the lookup-training shape under lookup_training), then the
@@ -2293,6 +2311,108 @@ def phase_cia_xsec(dev):
             f"(limit 1e-6), {tuple(out[torch.float32].shape)}")
 
 
+ECS_F32_TOL = 1e-5
+ECS_EIG_TOL = 1e-10
+ECS_PATH_TOL = 1e-4
+ECS_AREA_TOL = 0.10
+
+
+def phase_ecs(dev, _cuda, reps=5):
+    """ECS line mixing at full width (see 13. above)."""
+    from arts_tpu_torch._cuda import move
+    from arts_tpu_torch.fwd import simulate_clearsky
+    from arts_tpu_torch.lbl.ecs import band_matrix, ecs_absorption
+    from arts_tpu_torch.ops.eig_comp_sym import eig_comp_sym
+    from arts_tpu_torch.path import geometric_path_1d
+    from arts_tpu_torch.predefined import predefined_absorption
+    from arts_tpu_torch.scene import build_ecs_measurement
+    from arts_tpu_torch.sensor import clearsky_observer_cached, measurement_vector
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = t0 = time.perf_counter()
+    case = build_ecs_measurement(device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    paths = list(case.paths)
+    sc = {f32: case.scene, f64: move(case.scene, dev, f64)}
+    fg = {f32: case.f_grid, f64: case.f_grid.double()}
+    band, sidx, iidx, irat = case.scene.ecs_bands[0]
+    n_lev, F, n = case.scene.atm.z.numel(), case.f_grid.numel(), band.f0.numel()
+    log(f"ECS case built in {time.perf_counter() - t0:.1f} s: {n} lines in one band, "
+        f"{n_lev} levels x {F} frequencies, {len(paths)} beam positions, "
+        f"{case.sensor.n_elements} elements")
+
+    def absorb(dt):
+        pts = sc[dt].atm.at(sc[dt].atm.z)
+        return ecs_absorption(fg[dt], band, sc[dt].pf, iidx, pts.t, pts.p, pts.vmr[..., sidx],
+                              irat)
+
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    k32, k64 = absorb(f32), absorb(f64)
+    gap = ((k32.double() - k64).abs().amax(-1) / k64.abs().amax(-1)).flip(0)
+    worst = int(gap.argmax())
+    log(f"ECS absorption float32 vs float64 (float32 scene cast up), per level top first: "
+        f"largest {float(gap.max()):.3e} of the level's largest value at level "
+        f"{n_lev - 1 - worst} (limit {ECS_F32_TOL}); top 5 "
+        f"{[f'{float(x):.2e}' for x in gap[:5]]}; {card_line()}")
+    require(float(gap.max()) <= ECS_F32_TOL, f"ECS float32 gap {float(gap.max()):.3e}")
+
+    pts = sc[f64].atm.at(sc[f64].atm.z)
+    M, _ = band_matrix(band, pts.t, pts.p)
+    w = eig_comp_sym(M)[0]
+    w_lib = torch.linalg.eigvals(M)
+    w_lib = torch.take_along_dim(w_lib, torch.argsort(w_lib.real, -1), -1)
+    err_w = float((w - w_lib).abs().max() / w_lib.abs().max())
+    ms_j, ms_l = sync_ms(lambda: eig_comp_sym(M), reps), sync_ms(
+        lambda: torch.linalg.eigvals(M), reps)
+    log(f"eig_comp_sym vs torch.linalg.eigvals on the card on the {n_lev} band matrices "
+        f"[{n} x {n}, complex128]: {err_w:.3e} of the largest eigenvalue (limit {ECS_EIG_TOL}); "
+        f"Jacobi {ms_j[0]:.2f} ms, linalg.eigvals {ms_l[0]:.2f} ms (medians of {reps}); "
+        f"{card_line()}")
+    require(err_w <= ECS_EIG_TOL, f"eig_comp_sym vs eigvals {err_w:.3e}")
+
+    # the surface level's band area against O2-MPM2020's on the same grid
+    s0 = {k: v[:1] for k, v in (("t", pts.t), ("p", pts.p), ("v", pts.vmr[..., sidx]))}
+    a_ecs = k64[0].sum()
+    a_mpm = predefined_absorption(("O2-MPM2020",), fg[f64], s0["t"], s0["p"], {"O2": s0["v"]},
+                                  device=dev, dtype=f64)[0].sum()
+    ratio = float(a_ecs / (a_mpm * irat))
+    log(f"ECS band area at the surface over O2-MPM2020's (O2-66 abundance taken out): "
+        f"{ratio:.4f} (limit 1 +- {ECS_AREA_TOL})")
+    require(abs(ratio - 1.0) <= ECS_AREA_TOL, f"ECS area ratio {ratio:.4f}")
+
+    # the nadir path from the top and the scan line, float32 against float64
+    nadir = geometric_path_1d(float(sc[f32].atm.z[-1]), 180.0, 0.0, float(sc[f32].atm.z[-1]),
+                              1000.0)
+
+    def radiance(dt):
+        return simulate_clearsky(sc[dt], fg[dt], nadir.alt, nadir.dr, background="surface",
+                                 device=dev, dtype=dt)
+
+    def scan(dt):
+        return measurement_vector(sc[dt], case.sensor, fg[dt], paths,
+                                  observer=clearsky_observer_cached(), device=dev, dtype=dt)
+
+    out = {}
+    for what, fn in (("nadir radiance", radiance), ("ATMS scan line", scan)):
+        got, want = fn(f32), fn(f64)
+        _, r = close(got, want, 0.0, ECS_PATH_TOL, f"ECS {what} float32 vs float64")
+        out[what], times = sync_ms(lambda: fn(f32), reps)
+        log(f"ECS {what}, float32 vs float64 route on the same inputs: {r:.3e} of scale "
+            f"(limit {ECS_PATH_TOL}); median of {reps} float32 calls {out[what]:.2f} ms "
+            f"(calls {[round(t, 2) for t in times]}); {card_line()}")
+    log_profile("ECS ATMS scan line (float32)", lambda: scan(f32), 8)
+    launches = dict(_cuda.LAUNCHES)
+    log(f"ECS path launches (counts set to 0 before its first call): {launches}")
+    require(not any(launches.values()), "a kernel launched on the ECS path")
+    out["absorption"], times = sync_ms(lambda: absorb(f32), reps)
+    log(f"ECS phase peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"ecs_absorption float32 at {n_lev} levels: median of {reps} calls "
+        f"{out['absorption']:.2f} ms (calls {[round(t, 2) for t in times]}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2347,6 +2467,8 @@ def main():
     lookup = phase_lookup(dev, _cuda)
     kernels[0]["launches_on"]["lookup_training"] = lookup["launches"]
     kernels[0]["lookup_training"] = {k: lookup[k] for k in ("ms", "bound_ms", "train_ms")}
+    torch.cuda.empty_cache()
+    phase_ecs(dev, _cuda)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -3,7 +3,8 @@ the CPU at float64: species_absorption with lines and continua on both
 backends (the dense route also on one Doppler-shifted grid per point),
 the JAX package's example 1 (simulate_clearsky_bt over predefined models
 alone) at reduced levels, example 3's all-sky scene without a catalog
-through simulate_allsky, the ECS refusal, and the new scene builders.
+through simulate_allsky, an ECS band beside them (and the sun's refusal),
+and the new scene builders.
 
 The JAX references are compiled with `ref_jit`, each fixture's as one
 function."""
@@ -193,10 +194,25 @@ def test_allsky_without_catalog():
 
 
 def test_ecs_scene_still_raises():
+    """A scene with an ECS band no longer raises: its band adds to the
+    predefined models' absorption.  The sun in the pencil beam still
+    raises NotImplementedError (ROADMAP §A 7)."""
+    from arts_tpu_torch.lbl.ecs import make_o2_band, o2_erot
+    from arts_tpu_torch.lbl.partfun import rigid_rotor_table
+
     ps, f = build_predef_scene(n_lev=4, n_freq=4, **CPU64)
-    scene = F.ClearskyScene(atm=ps.atm, cat=None, pf=None, ecs_bands=(object(),))
-    with pytest.raises(NotImplementedError, match="ECS"):
-        F.simulate_clearsky(scene, f, [0.0, 1e3], [1e3], **CPU64)
+    band = make_o2_band([dict(f0=56.26e9, a=1e-9, e0=o2_erot(1, 2), gu=3.0, Ju=1.0, Jl=2.0,
+                              Nu=1.0, Nl=1.0, g0=(2e4, 0.8))], device="cpu")
+    o2 = ps.species_names.index("O2")
+    scene = F.ClearskyScene(atm=ps.atm, cat=None, pf=rigid_rotor_table(1, 215.7, **CPU64),
+                            predef=ps.predef, species_names=ps.species_names,
+                            ecs_bands=((band, o2, 0, 1.0),))
+    path = ([0.0, 1e3], [1e3])
+    I = F.simulate_clearsky(scene, f, *path, **CPU64)
+    I0 = F.simulate_clearsky(dataclasses.replace(scene, ecs_bands=()), f, *path, **CPU64)
+    assert bool(torch.isfinite(I).all()) and bool((I != I0).any())
+    with pytest.raises(NotImplementedError, match="sun"):
+        F.simulate_clearsky(scene, f, *path, sun=1.0, **CPU64)
 
 
 def test_scene_builders():

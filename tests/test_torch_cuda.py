@@ -595,3 +595,42 @@ def test_lookup_training_kernel_matches_plain(dev, dtype, rtol, atol):
     want = train_lookup(*args, device="cpu", dtype=dtype).xsec
     got, want = got.double().cpu(), want.double()
     assert bool(((got - want).abs() <= atol * want.abs().max() + rtol * want.abs()).all())
+
+
+@pytest.mark.parametrize("n_lev", [4, 12])
+def test_ecs_scene_float32_matches_float64_on_the_card(dev, n_lev):
+    """build_ecs_scene on the card (512 frequencies over 50-70 GHz): the ECS
+    band's absorption in float32 against float64 on the same inputs (the
+    float32 scene cast up) within 1e-5 of each level's largest value, the
+    Jacobi's eigenvalues against torch.linalg.eigvals within 1e-10 of the
+    largest, and a nadir radiance from the top within 1e-4 of scale."""
+    from arts_tpu_torch._cuda import move
+    from arts_tpu_torch.fwd import simulate_clearsky
+    from arts_tpu_torch.lbl.ecs import band_matrix, ecs_absorption
+    from arts_tpu_torch.ops.eig_comp_sym import eig_comp_sym
+    from arts_tpu_torch.scene import build_ecs_scene
+
+    s32, f32 = build_ecs_scene(n_lev=n_lev, n_freq=512, device=dev, dtype=torch.float32)
+    s64, f64 = move(s32, dev, torch.float64), f32.double()
+    band, sidx, iidx, irat = s32.ecs_bands[0]
+
+    def absorb(s, f):
+        pts = s.atm.at(s.atm.z)
+        return ecs_absorption(f, band, s.pf, iidx, pts.t, pts.p, pts.vmr[..., sidx], irat)
+
+    k32, k64 = absorb(s32, f32), absorb(s64, f64)
+    assert k32.dtype == torch.float32
+    gap = (k32.double() - k64).abs().amax(-1) / k64.abs().amax(-1)
+    assert float(gap.max()) <= 1e-5, gap
+    pts = s64.atm.at(s64.atm.z)
+    M, _ = band_matrix(band, pts.t, pts.p)
+    w = eig_comp_sym(M)[0]
+    w_lib = torch.linalg.eigvals(M.cpu()).to(dev)
+    w_lib = torch.take_along_dim(w_lib, torch.argsort(w_lib.real, -1), -1)
+    assert float((w - w_lib).abs().max() / w_lib.abs().max()) <= 1e-10
+    top = float(s32.atm.z[-1])
+    alt = np.linspace(top, 0.0, 41)
+    dr = np.full(40, top / 40)
+    I32, I64 = (simulate_clearsky(s, f, alt, dr, background="surface", device=dev,
+                                  dtype=f.dtype) for s, f in ((s32, f32), (s64, f64)))
+    assert float((I32.double() - I64).abs().max() / I64.abs().max()) <= 1e-4

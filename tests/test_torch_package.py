@@ -113,7 +113,20 @@ def _entry_points():
     from arts_tpu_torch.predefined import mt_ckd400, predefined_absorption
     from arts_tpu_torch.scene import build_continuum_scene, build_lookup_case, build_predef_scene
 
+    from arts_tpu_torch.convert import ecs_band_from_numpy
+    from arts_tpu_torch.io.hitran import catalog_from_par
+    from arts_tpu_torch.lbl.ecs import (
+        make_linear_band,
+        make_o2_band,
+        make_sphtop_band,
+        make_stotop_band,
+    )
+    from arts_tpu_torch.scene import build_ecs_measurement, build_ecs_scene
+
     lines = lambda: read_par(synth_par_rows(4), ["H2O", "O2"])
+    o2 = [dict(f0=56.26e9, a=1e-9, e0=0.0, gu=3.0, Ju=1.0, Jl=2.0, Nu=1.0, Nl=1.0,
+               g0=(2e4, 0.8))]
+    lin = [dict(f0=70.4e12, a=1e-6, e0=0.0, gu=3.0, Ji=1.0, Jf=0.0, K=0.0, g0=(2e4, 0.8))]
     zrows = lambda: synth_par_rows(4)
     mtckd = {name: (lambda fn: lambda o: fn([1e13], 280.0, 9e4, {"H2O": 0.01}, None))(
         getattr(mt_ckd400, name)) for name in (
@@ -136,6 +149,17 @@ def _entry_points():
         "build_continuum_scene": lambda o: build_continuum_scene(n_lev=3, n_freq=8, n_lines=4),
         "build_predef_scene": lambda o: build_predef_scene(n_lev=3, n_freq=8),
         "build_lookup_case": lambda o: build_lookup_case(n_lev=3, n_freq=8, n_lines=4),
+        "make_o2_band": lambda o: make_o2_band(o2),
+        "make_linear_band": lambda o: make_linear_band(lin),
+        "make_stotop_band": lambda o: make_stotop_band(lin, ecs=dict(
+            scaling=1.0, beta=0.0, lam=0.0, collisional_distance=1e-10)),
+        "make_sphtop_band": lambda o: make_sphtop_band(lin, ecs=dict(
+            scaling=1.0, beta=0.0, lam=0.0, collisional_distance=1e-10)),
+        "ecs_band_from_numpy": lambda o: ecs_band_from_numpy({}),
+        "catalog_from_par": lambda o: catalog_from_par(synth_par_rows(4), ["H2O", "O2"],
+                                                       strength_option="A"),
+        "build_ecs_scene": lambda o: build_ecs_scene(n_lev=3, n_freq=8),
+        "build_ecs_measurement": lambda o: build_ecs_measurement(n_lev=3, n_freq=8, n_scan=1),
         "igrf13": lambda o: igrf13(60.0, 0.0, 0.0),
         "dipole_field": lambda o: dipole_field(60.0, 0.0, 0.0),
         "magnetic_profile": lambda o: magnetic_profile(np.linspace(0.0, 1e4, 3)),

@@ -1,6 +1,6 @@
 """The Voigt kernel's input layout on the CPU: polarization-pure line
-blocks from voigt_inputs, and the polarized plain version against a dense
-numpy sum per polarization."""
+blocks from voigt_inputs, the polarized plain version against a dense
+numpy sum per polarization, and the pair counts of the visit lists."""
 
 import numpy as np
 import pytest
@@ -8,6 +8,7 @@ import torch
 from scipy.special import wofz as sp_wofz
 
 from arts_tpu_torch.ops import voigt_kernel as V
+from test_torch_lbl import _window_mix
 
 T = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
 
@@ -98,3 +99,18 @@ def test_voigt_sum_pol_plain_matches_dense_per_polarization():
         want[z] = table[z][polidx].T @ term
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=3e-6 * np.abs(want).max())
+
+
+def test_pair_counts_cover_the_visited_blocks():
+    """Every slot before nvisit contributes tl*tf visited pairs, split over
+    the tiers; in-window pairs are a subset."""
+    f, *cols = map(T, _window_mix())
+    args, _ = V.voigt_inputs(f, *(c[None] for c in cols))
+    f, lines, ext, blkidx, nvisit, _ = args
+    counts = V.pair_counts(f, lines, ext, blkidx, nvisit)
+    tl = lines.shape[1] // ext.shape[-1]  # lines are [Z, nl*tl, 8] records
+    tf = f.shape[0] // nvisit.shape[-1]
+    assert sum(counts["visited"].values()) == int(nvisit.sum()) * tl * tf
+    for k, v in counts["in_window"].items():
+        assert 0 <= v <= counts["visited"][k]
+    assert sum(counts["in_window"].values()) > 0
