@@ -32,6 +32,13 @@ scene.build_continuum_scene and scene.build_predef_scene; lbl.cia,
 lbl.xsec_fit and lbl.lookup give collision-induced absorption,
 cross-section fits and lookup tables (train_lookup through the Voigt
 kernel, e.g. scene.build_lookup_case).
+The sun enters the clear-sky radiance as the path's background and as
+first-order Rayleigh scattered sunlight (sun, rtepack.scattering,
+fwd.sun_leg_tau, path.refraction), e.g. scene.build_occultation_scan and
+scene.build_sky_almucantar; rtepack.surface holds the Fresnel
+reflection, atm.surface a (lat, lon) surface field, and atm.subsurface
+the emission from below the surface, through the fused DISORT kernels
+for all frequencies at once, e.g. scene.build_subsurface_case.
 Entry points run on the card unless the caller passes device="cpu";
 without a card they raise.  Importing the package touches no device and
 changes no global setting.

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
@@ -59,6 +60,16 @@ def resolve(device=None, dtype=None):
             "device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return dev, (torch.float32 if dtype is None else dtype)
+
+
+def tensor(x, device, dtype):
+    """x as a tensor on `device` in `dtype`.  Numbers and arrays are read at
+    double precision first (torch.as_tensor would read a Python float as
+    float32)."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        x = torch.as_tensor(a.astype(np.result_type(a, np.float64)))
+    return x.to(device=device, dtype=dtype)
 
 
 def move(obj, device, dtype):

@@ -40,7 +40,12 @@ padded_zeeman_catalog_from_numpy take a Zeeman catalog and its bucketed
 form the same way.  cia_dataset_from_numpy, xsec_fit_dataset_from_numpy,
 lookup_table_from_numpy and mtckd_data_from_numpy take the absorption
 datasets: a CIA table, a cross-section fit, a lookup table and the
-MT_CKD 4.x water tables, each as a dict of its fields.
+MT_CKD 4.x water tables, each as a dict of its fields.  sun_from_numpy
+takes a sun ({"spectrum", "radius", "distance", "latitude", "longitude"},
+the geometry optional), surface_field_from_numpy a surface field ({"lat",
+"lon", "temperature", "elevation", "emissivity"}) and
+subsurface_field_from_numpy a subsurface field ({"depth", "t",
+"absorption", "ssa" and "g" optional}).
 """
 
 import dataclasses
@@ -50,6 +55,8 @@ import torch
 
 from ._cuda import resolve
 from .atm import Atmosphere1D
+from .atm.subsurface import SubsurfaceField
+from .atm.surface import SurfaceField
 from .fwd import ClearskyScene, ZeemanScene
 from .fwd_allsky import AllskyScene
 from .lbl.catalog import catalog_from_arrays
@@ -63,6 +70,7 @@ from .lbl.zeeman import PaddedZeemanCatalog, ZeemanCatalog
 from .predefined.mt_ckd400 import MTCKD400Data, MTCKD430Data
 from .scattering import HenyeyGreenstein
 from .sensor import SensorArray
+from .sun import AU, SUN_RADIUS, Sun
 
 
 def scene_from_numpy(d, device=None, dtype=None) -> AllskyScene:
@@ -206,3 +214,29 @@ def mtckd_data_from_numpy(d, device=None, dtype=None):
     _, flts = _tensors(dev, dt)
     cls = MTCKD430Data if "for_closure_absco_ref" in d else MTCKD400Data
     return cls(**{f.name: flts(d[f.name]) for f in dataclasses.fields(cls)})
+
+
+def sun_from_numpy(d, device=None, dtype=None) -> Sun:
+    """Sun from {"spectrum", "radius", "distance", "latitude", "longitude"}
+    (the geometry defaults to sun.py's)."""
+    dev, dt = resolve(device, dtype)
+    _, flts = _tensors(dev, dt)
+    geo = dict(radius=SUN_RADIUS, distance=AU, latitude=0.0, longitude=0.0)
+    return Sun(spectrum=flts(d["spectrum"]), **{k: flts(d.get(k, v)) for k, v in geo.items()})
+
+
+def surface_field_from_numpy(d, device=None, dtype=None) -> SurfaceField:
+    """SurfaceField from {"lat", "lon", "temperature", "elevation",
+    "emissivity"}."""
+    dev, dt = resolve(device, dtype)
+    _, flts = _tensors(dev, dt)
+    return SurfaceField(**{f.name: flts(d[f.name]) for f in dataclasses.fields(SurfaceField)})
+
+
+def subsurface_field_from_numpy(d, device=None, dtype=None) -> SubsurfaceField:
+    """SubsurfaceField from {"depth", "t", "absorption"} and optionally
+    "ssa" and "g"."""
+    dev, dt = resolve(device, dtype)
+    _, flts = _tensors(dev, dt)
+    return SubsurfaceField(**{f.name: None if d.get(f.name) is None else flts(d[f.name])
+                              for f in dataclasses.fields(SubsurfaceField)})

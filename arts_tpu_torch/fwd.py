@@ -17,14 +17,23 @@ VMRs) plus its ECS line-mixing bands (scene.ecs_bands, lbl.ecs),
 assembled in species_absorption for every caller.  A non-LTE band
 (scene.nlte, lbl.nlte.NlteField) adds its absorption to K and its
 emission excess S to the source, J = B + K^-1 S, in the scalar and the
-polarized radiance.  Not ported yet: the sun in the pencil beam (ROADMAP
-§A 7), which raises NotImplementedError.
+polarized radiance.
+
+The sun enters the scalar radiance in two ways (simulate_clearsky's sun
+arguments): as the path's background where the line of sight at the far
+end hits the solar disk (sun.hit_sun_los), and as first-order Rayleigh
+scattered sunlight along the path, attenuated along each scatter point's
+spherical-shell sun leg (sun_leg_tau, geometric or refracted).  Not
+ported yet: the 3-D clear-sky operator, simulate_clearsky_3d (ROADMAP
+§A 7).
 """
 
 import dataclasses
+import math
 
 import torch
 
+from . import _cuda
 from . import constants as const
 from ._cuda import move, resolve
 from .atm import Atmosphere1D
@@ -36,11 +45,15 @@ from .lbl.voigt import absorption, absorption_kernel
 from .lbl.zeeman import ZeemanCatalog, zeeman_propmat_views
 from .ops.planck import inv_planck, planck
 from .options import PathBackground, RteOption, check_option
+from .path.geometry import EARTH_RADIUS
+from .path.refraction import microwave_refractivity
 from .predefined import predefined_absorption
 from .rtepack import emission as E
 from .rtepack.propmat import inv as pm_inv
 from .rtepack.propmat import matvec
+from .rtepack.scattering import rayleigh_scat_airsimple, rayleigh_scattering
 from .rtepack.surface import flat_scalar_reflection
+from .sun import hit_sun_los, sun_background_radiance
 
 
 def _emission_fn(rte_option: str):
@@ -117,11 +130,12 @@ class ClearskyScene:
     nlte: object | None = None
 
 
-def _background(scene, f_grid, k, J, r, background, emission):
-    """The radiance entering the far end of the path [F]: the cosmic
-    background ("space"), an emitting surface ("surface") or an emitting
-    surface that reflects the downwelling radiance of the same layers
-    ("surface_reflect", the recursion over the reversed path)."""
+def _background(scene, f_grid, k, J, r, background, emission, space=None):
+    """The radiance entering the far end of the path [F] (or [..., F]): the
+    cosmic background, or `space` in its place ("space"), an emitting
+    surface ("surface") or an emitting surface that reflects the
+    downwelling radiance of the same layers ("surface_reflect", the
+    recursion over the reversed path)."""
     cmb = planck(f_grid, torch.tensor(const.cosmic_microwave_background_temperature,
                                       dtype=f_grid.dtype, device=f_grid.device))
     cmb = cmb * torch.ones_like(f_grid)
@@ -132,18 +146,19 @@ def _background(scene, f_grid, k, J, r, background, emission):
     if bg == "surface_reflect":
         I_down = emission(k.flip(0), J.flip(0), r.flip(0), cmb)
         return (1.0 - eps) * I_down + eps * planck(f_grid, scene.surface_temperature)
-    return cmb
+    return cmb if space is None else space
 
 
-def _radiance(scene, f_grid, k, pts, r, background, rte_option, dJ=None):
+def _radiance(scene, f_grid, k, pts, r, background, rte_option, dJ=None, space=None):
     """Emission along the paths from point quantities [..., NP, F]; dJ adds
-    to the Planck source (a non-LTE band's K^-1 S)."""
+    to the Planck source (a non-LTE band's K^-1 S, the scattered sun's);
+    space replaces the cosmic background of background "space"."""
     emission = _emission_fn(rte_option)
     J = planck(f_grid, pts.t[..., None])
     if dJ is not None:
         J = J + dJ
     k, J, r = torch.movedim(k, -2, 0), torch.movedim(J, -2, 0), torch.movedim(r, -1, 0)
-    I0 = _background(scene, f_grid, k, J, r, background, emission)
+    I0 = _background(scene, f_grid, k, J, r, background, emission, space)
     return emission(k, J, r, I0.expand(k.shape[1:]))
 
 
@@ -163,16 +178,33 @@ def simulate_clearsky(scene: ClearskyScene, f_grid, path_alt, path_dr,
     absorption is evaluated on its Doppler-shifted grid
     f (1 - v_los / c).  A non-LTE band (scene.nlte) adds its absorption at
     each point (on the same grid) to K and its source S as K^-1 S to the
-    Planck source, with K the full absorption.  The sun arguments raise
-    NotImplementedError (not ported yet, ROADMAP §A 7).
+    Planck source, with K the full absorption.
+
+    The sun (sun.Sun, e.g. sun.sun_blackbody) with its local direction
+    (sun_za, sun_aa) [deg, toward the sun], each a scalar or one value per
+    path (the leading axes of path_alt):
+      * background "space" with path_za given: the background becomes the
+        photosphere radiance where the line of sight at the path's last
+        point (path_za and path_aa, each [..., NP] or a scalar) hits the disk
+        (sun.hit_sun_los, in float64; padded paths repeat their last
+        point, as sensor.stack_paths pads them);
+      * scattered_sun=True (path_za needed): first-order Rayleigh scattered
+        sunlight at every point, J += K^-1 scat, with scat = k_ray
+        P11 / (4 pi) pi sin^2(alpha) S exp(-tau_sun) (the phase matrix's
+        first element at depolarization `depolarization`, air by
+        rayleigh_scat_airsimple) and tau_sun along each point's
+        spherical-shell sun leg through the levels' absorption plus
+        Rayleigh air (sun_leg_tau; refracted by the levels' Smith-Weintraub
+        index with sun_refraction=True, H2O from the scene's "H2O" row);
+        the Rayleigh air extinction joins K on the path.
+    The sun's geometry (hit test, sun legs, phase) is computed in float64
+    whatever the dtype.
     """
-    if sun is not None or scattered_sun:
-        raise NotImplementedError("the sun in the pencil beam is not ported yet "
-                                  "(ROADMAP §A 7)")
     _emission_fn(rte_option)
     check_option(PathBackground, background)
     dev, dt = resolve(device, dtype)
-    as_t = lambda x: torch.as_tensor(x).to(device=dev, dtype=dt)
+    as_t = lambda x: _cuda.tensor(x, dev, dt)
+    as_64 = lambda x: _cuda.tensor(x, dev, torch.float64)
     scene = move(scene, dev, dt)
     f_grid, path_alt, r = as_t(f_grid), as_t(path_alt), as_t(path_dr)
     pts = scene.atm.at(path_alt)
@@ -193,7 +225,111 @@ def simulate_clearsky(scene: ClearskyScene, f_grid, path_alt, path_dr,
                                           block=block)
         k = k + a_n
         dJ = s_n / torch.where(k.abs() > 1e-30, k, torch.ones_like(k))
-    return _radiance(scene, f_grid, k, pts, r, background, rte_option, dJ)
+    space = None
+    if sun is not None and (scattered_sun or (background == "space" and path_za is not None)):
+        if path_za is None:
+            raise ValueError("simulate_clearsky: scattered_sun needs path_za")
+        sun_in, sun = sun, move(sun, dev, dt)
+        per_path = lambda x: torch.broadcast_to(as_64(x), path_alt.shape[:-1])
+        sza, saa = per_path(sun_za), per_path(sun_aa)
+        za64 = torch.broadcast_to(as_64(path_za), path_alt.shape)
+        aa64 = torch.broadcast_to(as_64(0.0 if path_aa is None else path_aa), path_alt.shape)
+        if scattered_sun:
+            k_ray = rayleigh_scat_airsimple(f_grid, pts.p[..., None], pts.t[..., None],
+                                            device=dev, dtype=dt)
+            t_sun = _sun_transmittance(scene, f_grid, path_alt, sza, block, sun_refraction)
+            los_in = torch.stack([sza[..., None].expand(za64.shape),
+                                  saa[..., None].expand(za64.shape)], -1)
+            phase = rayleigh_scattering(los_in, torch.stack([za64, aa64], -1), depolarization,
+                                        device=dev, dtype=torch.float64)[..., 0, 0]
+            scat = (k_ray * (phase / (4.0 * math.pi)).to(dt)[..., None]
+                    * (math.pi * sun.sin_alpha_squared()) * sun.spectrum * t_sun)
+            k = k + k_ray  # the scattering extinction on the main path too
+            dJ_sun = scat / torch.where(k.abs() > 1e-30, k, torch.ones_like(k))
+            dJ = dJ_sun if dJ is None else dJ + dJ_sun
+        if background == "space" and path_za is not None:
+            _, hit = hit_sun_los(sun_in, za64[..., -1], aa64[..., -1], sza, saa, device=dev)
+            space = sun_background_radiance(sun, f_grid, hit)
+    return _radiance(scene, f_grid, k, pts, r, background, rte_option, dJ, space)
+
+
+def _sun_transmittance(scene, f_grid, path_alt, sun_za, block, refraction):
+    """exp(-tau) [..., NP, F] of the sun legs of the path points (0 where the
+    planet blocks the leg): the levels' gas absorption plus Rayleigh air,
+    averaged over each layer, through sun_leg_tau; sun_za [...] per path."""
+    zg = scene.atm.z
+    lv = scene.atm.at(zg)
+    kx = species_absorption(scene, f_grid, lv.t, lv.p, lv.vmr, block=block) + (
+        rayleigh_scat_airsimple(f_grid, lv.p[:, None], lv.t[:, None], device=f_grid.device,
+                                dtype=f_grid.dtype))
+    k_mid = 0.5 * (kx[1:] + kx[:-1])  # [Z-1, F]
+    n_lvl = None
+    if refraction:
+        names = scene.species_names
+        h2o = lv.vmr[:, names.index("H2O")] if "H2O" in names else torch.zeros_like(lv.p)
+        n_lvl = 1.0 + microwave_refractivity(lv.p, lv.t, h2o)
+    tau, visible = sun_leg_tau(zg, k_mid, path_alt, sun_za[..., None], n_levels=n_lvl)
+    return torch.where(visible[..., None], torch.exp(-tau), torch.zeros_like(tau))
+
+
+def sun_leg_tau(z_levels, k_mid, alt, sun_za_deg, radius=EARTH_RADIUS, n_levels=None):
+    """Optical depth [..., F] along the sun legs of the points at `alt`
+    [...], and whether the planet leaves each leg open [...] (bool).
+
+    The spherical-shell form of ARTS's find_sun_path: from a point at alt
+    with local sun zenith angle sun_za_deg (broadcast to alt), the ray's
+    Bouguer invariant is p = n(alt) (R + alt) sin(za); within shell j (its
+    refractive index n_j the mean of its levels') the slant coordinate is
+    S_j(r) = sqrt((n_j r)^2 - p^2) / n_j, so the slant lengths per shell
+    are differences of S and tau is one contraction with k_mid [Z-1, F],
+    the layers' extinction.  Rays above the horizon (za > 90) descend to
+    the tangent radius (n r = p) first: where that clears the surface the
+    sun is still seen (twilight) and tau = 2 tau_full - tau_up; where it
+    does not, the planet blocks the leg.  n_levels [Z] (optional): the
+    refractive index at the levels z_levels [Z] (ascending); None = 1.
+    Assumes n r increases outward (no ducting).
+
+    The geometry is float64 whatever the dtype: sqrt((n r)^2 - p^2) at r ~
+    6.4e6 m cancels ~1e-4 of tau in float32.  The slant lengths are then
+    cast to k_mid's dtype and contracted in full float32 (no TF32), the
+    descending legs' 2 S_full - S_up formed before the contraction."""
+    dev = k_mid.device
+    d = lambda x: _cuda.tensor(x, dev, torch.float64)
+    alt = d(alt)
+    za = torch.deg2rad(torch.broadcast_to(d(sun_za_deg), alt.shape))
+    r_a = radius + alt
+    z = d(z_levels)
+    r_l = radius + z
+    if n_levels is None:
+        n_mid = torch.ones_like(z[1:])
+        n_at = torch.ones_like(alt)
+        n_bot = 1.0
+    else:
+        n = d(n_levels)
+        n_mid = 0.5 * (n[1:] + n[:-1])
+        i1 = torch.clamp(torch.searchsorted(z, alt), 1, z.shape[0] - 1)
+        w = torch.clamp((alt - z[i1 - 1]) / (z[i1] - z[i1 - 1]), 0.0, 1.0)
+        n_at = n[i1 - 1] * (1.0 - w) + n[i1] * w
+        n_bot = n[0]
+    p_inv = n_at * r_a * torch.sin(za)
+
+    def S_of(r, nj):
+        x = (nj * r) ** 2 - p_inv[..., None] ** 2
+        pos = x > 0
+        return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))),
+                           torch.zeros_like(x)) / nj
+
+    S_lo, S_hi = S_of(r_l[:-1], n_mid), S_of(r_l[1:], n_mid)  # [..., Z-1]
+    Sa = S_of(r_a[..., None], n_mid)  # the start, clamped per shell
+    seg_up = torch.clamp(S_hi - torch.maximum(S_lo, Sa), min=0.0)
+    seg_full = torch.clamp(S_hi - S_lo, min=0.0)
+    desc = za > math.pi / 2
+    # tau = 2 tau_full - tau_up on descending legs, as one contraction of
+    # the combined slant lengths (float32 would round the two sums apart)
+    seg = torch.where(desc[..., None], 2.0 * seg_full - seg_up, seg_up).to(k_mid.dtype)
+    with _cuda.full_f32_matmul():
+        tau = seg @ k_mid
+    return tau, (~desc) | (p_inv > n_bot * radius)
 
 
 def gas_absorption_levels(scene: ClearskyScene, f_grid, block: int = 256,

@@ -26,7 +26,12 @@ table's training inputs on the benchmark and its check points.
 build_ecs_scene is a clear-sky 50-70 GHz scene whose O2 band is one ECS
 line-mixing band (o2_ecs_par_rows: the 38 lines of O2-MPM2020 as .par
 rows), build_ecs_measurement an ATMS temperature-sounding scan line over
-it.
+it.  build_occultation_scan is a limb scan through the 183 GHz water line
+with the sun on every beam's axis, build_sky_almucantar a sky
+radiometer's almucantar in the visible (the sun in the beam and the
+Rayleigh-scattered sun), and build_subsurface_case a firn column's
+microwave emission through DISORT under the clear-sky downwelling
+radiance.
 """
 
 import dataclasses
@@ -38,6 +43,7 @@ from . import constants as const
 from ._cuda import move, resolve
 from .atm import Atmosphere1D
 from .atm.field import hydrostatic_pressure
+from .atm.subsurface import SubsurfaceField
 from .atm.igrf import magnetic_profile
 from .atm.standard import standard_atmosphere
 from .disort import DisortInput
@@ -61,12 +67,15 @@ from .lbl.partfun import rigid_rotor_table
 from .lbl.tmodel import Law
 from .lbl.zeeman import pad_zeeman_catalog, tune_zeeman_profile
 from .path import PathGeometry, geometric_path_1d
+from .path.geometry import EARTH_RADIUS
 from .ops.zeeman_mp_kernel import MP_TERMS, NCOMP, pole_records
 from .predefined.models import _M20_C, _M20_F0, _M20_GA
 from .retrieval import covariance
 from .retrieval.targets import RetrievalTarget, StateMapping
 from .scattering import HenyeyGreenstein
 from .sensor import SensorArray, gaussian_channels
+from .sensor.measurement import stack_paths
+from .sun import Sun, sun_blackbody
 
 
 def synth_par_rows(n_lines=2048, fmin=160e9, fmax=260e9, seed=7):
@@ -828,3 +837,176 @@ def build_ecs_measurement(n_lev=60, n_freq=4096, n_scan=96, max_step=1000.0, dev
                                device=dev, dtype=dt)
     return ClearskyMeasurement(scene=scene, f_grid=f, paths=paths, sensor=sensor,
                                scan_deg=scan)
+
+
+@dataclasses.dataclass(frozen=True)
+class SunPaths:
+    """A batch of G pencil beams with the sun in the scene:
+    simulate_clearsky's arguments (kwargs()).  path_alt [G, NP] and
+    path_dr [G, NP-1] in the scene's dtype, padded as sensor.stack_paths
+    pads; the angles in float64: path_za, path_aa [G, NP], sun_za [G]
+    [deg].  labels [G]: tangent altitudes [m] or azimuths [deg]."""
+
+    scene: ClearskyScene
+    f_grid: torch.Tensor
+    sun: Sun
+    path_alt: torch.Tensor
+    path_dr: torch.Tensor
+    path_za: torch.Tensor
+    path_aa: torch.Tensor
+    sun_za: torch.Tensor
+    sun_aa: float
+    scattered_sun: bool
+    labels: np.ndarray
+
+    def kwargs(self):
+        return dict(path_za=self.path_za, path_aa=self.path_aa, sun=self.sun,
+                    sun_za=self.sun_za, sun_aa=self.sun_aa, scattered_sun=self.scattered_sun)
+
+
+def _sun_paths(scene, f, paths, aa, sun_aa, scattered, labels, dev, dt):
+    alt, dr, za, _ = stack_paths(paths, device=dev, dtype=torch.float64)
+    aa = torch.as_tensor(np.asarray(aa, np.float64), device=dev)[:, None].expand_as(za)
+    return SunPaths(scene=scene, f_grid=f, sun=sun_blackbody(f, device=dev, dtype=dt),
+                    path_alt=alt.to(dt), path_dr=dr.to(dt), path_za=za,
+                    path_aa=aa.contiguous(), sun_za=za[:, -1].clone(), sun_aa=sun_aa,
+                    scattered_sun=scattered, labels=np.asarray(labels))
+
+
+OCCULTATION_OBS = 600e3
+SUN_SCENE_SPECIES = ("N2", "O2", "H2O")
+
+
+def build_occultation_scan(n_lev=60, n_freq=4096, n_tan=21, max_step=2e3, device=None,
+                           dtype=None):
+    """A solar-occultation limb scan at full width (the first half of the
+    JAX package's example 11): 60 US-76 levels to 80 km (rows N2, O2, H2O)
+    absorbing by H2O-PWR98, n_freq frequencies over 175-191 GHz, a
+    blackbody sun, and n_tan limb paths from 600 km with tangent altitudes
+    evenly over 10-60 km (21: every 2.5 km) in steps of at most max_step,
+    each with the sun on its axis (its sun_za is the path's zenith angle
+    at its far end).  Limb sounders scanning through sunset or sunrise
+    model or flag the sun in their beam this way."""
+    dev, dt = resolve(device, dtype)
+    atm = standard_atmosphere(n_levels=n_lev, z_top=80e3, species=SUN_SCENE_SPECIES,
+                              device=dev, dtype=dt)
+    scene = ClearskyScene(atm=atm, cat=None, pf=None, predef=("H2O-PWR98",),
+                          species_names=SUN_SCENE_SPECIES)
+    f = torch.as_tensor(np.linspace(175e9, 191e9, n_freq), dtype=dt, device=dev)
+    z_top = float(atm.z[-1])
+    tangents = np.linspace(10e3, 60e3, n_tan)
+    r_obs = EARTH_RADIUS + OCCULTATION_OBS
+    paths = [geometric_path_1d(OCCULTATION_OBS,
+                               180.0 - np.degrees(np.arcsin((EARTH_RADIUS + h) / r_obs)),
+                               0.0, z_top, max_step) for h in tangents]
+    return _sun_paths(scene, f, paths, np.zeros(n_tan), 0.0, False, tangents, dev, dt)
+
+
+ALMUCANTAR_SZA = 55.0
+
+
+def build_sky_almucantar(n_lev=60, n_freq=4096, n_az=36, max_step=2e3, device=None,
+                         dtype=None):
+    """A sky radiometer's almucantar at full width (the second half of the
+    JAX package's example 11): 60 US-76 levels to 80 km with no gas (the
+    sky is Rayleigh air alone), n_freq frequencies over 4.3e14-7.5e14 Hz
+    (400-700 nm), a blackbody sun at azimuth 0 and zenith angle 55 deg,
+    and a ground observer looking at 55 deg zenith at n_az azimuths
+    evenly over 0-360 deg (36: every 10 deg), up through the atmosphere in
+    steps of at most max_step, with the Rayleigh-scattered sun
+    (scattered_sun=True).  The 1-D scene holds the sun's local zenith
+    angle fixed along a path: sun_za is its value where the beams leave
+    the atmosphere (the paths' zenith angle there, ~54.0 deg: the beam at
+    azimuth 0 looks at the sun), so one call runs both sun branches.  Sky
+    radiometers that scan the almucantar, in the manner of AERONET, see
+    such skies."""
+    dev, dt = resolve(device, dtype)
+    atm = standard_atmosphere(n_levels=n_lev, z_top=80e3, species=SUN_SCENE_SPECIES,
+                              device=dev, dtype=dt)
+    scene = ClearskyScene(atm=atm, cat=None, pf=None)
+    f = torch.as_tensor(np.linspace(4.3e14, 7.5e14, n_freq), dtype=dt, device=dev)
+    path = geometric_path_1d(0.0, ALMUCANTAR_SZA, 0.0, float(atm.z[-1]), max_step)
+    azimuths = np.arange(n_az) * (360.0 / n_az)
+    return _sun_paths(scene, f, [path] * n_az, azimuths, 0.0, True, azimuths, dev, dt)
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsurfaceCase:
+    """A subsurface emission case: the field, the frequency grid, the
+    downwelling radiance at the surface [F] and the number of streams."""
+
+    field: SubsurfaceField
+    f_grid: torch.Tensor
+    I_down: torch.Tensor
+    nquad: int
+
+
+ICE_DENSITY = 917.0  # [kg/m^3]
+
+
+def _firn_density(depth, rho_surface=350.0, scale=30.0):
+    """Firn density [kg/m^3] at depth [m]: ice density approached
+    exponentially from the surface's, the e-folding depth `scale` (the
+    shape of the Herron-Langway densification profile, Herron and Langway
+    1980, J. Glaciol. 25(93))."""
+    return ICE_DENSITY - (ICE_DENSITY - rho_surface) * np.exp(-np.asarray(depth) / scale)
+
+
+def _ice_permittivity(f, t):
+    """(eps', eps'') of pure ice at f [Hz] and t [K]: eps' = 3.1884 + 9.1e-4
+    (t - 273.16) and eps'' = alpha / f + beta f (f in GHz) after Hufford
+    (1991) with Mishima et al.'s (1983) beta term, as collected by Maetzler
+    (2006, Thermal Microwave Radiation, IET, section 5.3)."""
+    fg = np.asarray(f) * 1e-9
+    t = np.asarray(t)
+    theta = 300.0 / t - 1.0
+    alpha = (0.00504 + 0.0062 * theta) * np.exp(-22.1 * theta)
+    x = np.exp(335.0 / t)
+    beta = (0.0207 / t * x / (x - 1.0) ** 2 + 1.16e-11 * fg**2
+            + np.exp(-9.963 + 0.0372 * (t - 273.16)))
+    return 3.1884 + 9.1e-4 * (t - 273.16), alpha / fg + beta * fg
+
+
+def _firn_absorption(f, t, rho):
+    """Absorption coefficient [1/m] of dry firn of density rho [kg/m^3]:
+    the dry-snow mixing of Tiuri et al. (1984, IEEE J. Oceanic Eng. 9(5)),
+    eps' = 1 + 1.7 r + 0.7 r^2 and eps'' = eps''_ice (0.52 r + 0.62 r^2) with
+    r in g/cm^3, and the low-loss kappa = (2 pi f / c) eps'' / sqrt(eps')."""
+    r = np.asarray(rho) * 1e-3
+    _, e2_ice = _ice_permittivity(f, t)
+    e1 = 1.0 + 1.7 * r + 0.7 * r * r
+    e2 = e2_ice * (0.52 * r + 0.62 * r * r)
+    return 2.0 * np.pi * np.asarray(f) / const.c * e2 / np.sqrt(e1)
+
+
+def build_subsurface_case(n_lev=201, n_freq=4096, nquad=16, n_atm=60, device=None,
+                          dtype=None):
+    """A firn column's emission from L band to 89 GHz at full width: n_lev
+    depths evenly over 0-100 m; temperature 218.5 K at depth with a surface
+    wave of 20 K damped over 2 m (T = 218.5 + 20 exp(-z/2) cos(z/2), a
+    summer snapshot of a cold, dry ice-sheet interior); absorption [ND, F]
+    from _firn_density and _firn_absorption (pure ice after Maetzler 2006,
+    dry-snow mixing after Tiuri et al. 1984): e-folding depths ~1 km at
+    1.4 GHz and ~0.3 m at 89 GHz in the deep firn; Henyey-Greenstein
+    volume scattering near the surface, ssa = 0.5 exp(-z/3) and g = 0.3
+    exp(-z/3); n_freq frequencies over 1.4-89 GHz; nquad streams; and
+    I_down, the clear-sky downwelling radiance at the surface from
+    simulate_clearsky on a zenith path (background "space") through
+    build_predef_scene's gas models and atmosphere (n_atm levels).
+    SMOS/SMAP and AMSR-class retrievals over the ice sheets and sounders'
+    surface models for snow run such columns."""
+    dev, dt = resolve(device, dtype)
+    z = np.linspace(0.0, 100.0, n_lev)
+    f64 = np.linspace(1.4e9, 89e9, n_freq)
+    t = 218.5 + 20.0 * np.exp(-z / 2.0) * np.cos(z / 2.0)
+    k = _firn_absorption(f64[None, :], t[:, None], _firn_density(z)[:, None])
+    tt = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    field = SubsurfaceField(depth=tt(z), t=tt(t), absorption=tt(k),
+                            ssa=tt(0.5 * np.exp(-z / 3.0)), g=tt(0.3 * np.exp(-z / 3.0)))
+    allsky, _ = build_predef_scene(n_lev=n_atm, n_freq=2, device=dev, dtype=dt)
+    sky = ClearskyScene(atm=allsky.atm, cat=None, pf=None, predef=allsky.predef,
+                        species_names=allsky.species_names)
+    up = geometric_path_1d(0.0, 0.0, 0.0, float(allsky.atm.z[-1]), 1000.0)
+    f = tt(f64)
+    I_down = simulate_clearsky(sky, f, up.alt, up.dr, device=dev, dtype=dt)
+    return SubsurfaceCase(field=field, f_grid=f, I_down=I_down, nquad=nquad)

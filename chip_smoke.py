@@ -172,12 +172,37 @@
    scan line (device operations, busy share), the peak memory, and the
    band's area at the surface within 10 % of O2-MPM2020's on the same
    grid;
-14. prints each kernel's launches on its path, time, plain-version time,
+14. (after phase 13) the sun and the surfaces (phase_sun_surface): the
+   solar-occultation limb scan (scene.build_occultation_scan: 21 tangent
+   heights 10-60 km from 600 km, 4096 frequencies over 175-191 GHz,
+   H2O-PWR98, the sun on every beam's axis) and the sky almucantar
+   (scene.build_sky_almucantar: 36 azimuths at 55 deg zenith from the
+   ground, 4096 frequencies over 400-700 nm, Rayleigh air, the scattered
+   sun and the sun in the azimuth-0 beam) through simulate_clearsky, each
+   in float32 against float64 on the same inputs (each path within 1e-4 of
+   its own scale; no kernel lies on these paths, their counts must read
+   0), the 183.31 GHz transmittance below the window's on every limb
+   path, the sky's blue end above its red end and the azimuth-0 pixel on
+   the photosphere; the firn column (scene.build_subsurface_case: 201
+   levels over 100 m, 4096 frequencies over 1.4-89 GHz, 16 streams, the
+   clear sky's downwelling radiance on top) through
+   SubsurfaceField.emerging_radiance_disort, float32 on the fused route
+   against float64 on the plain route on the same inputs (u0 within 5e-3
+   of scale), one launch each of disort_stage1 and disort_stage23 per
+   call, two float32 runs bit-identical, the isothermal closure (I_down =
+   B(T), no scattering: B(T) within 1e-6 in float64 on the kernels), and
+   kernels 2 and 3+4 at that shape (4096 lanes x 200 layers) against their
+   plain versions (float64 2e-5, float32 1e-4) with their times by CUDA
+   events beside their bounds; each of the three calls' median of 5, busy
+   share from a profiled call and peak memory;
+15. prints each kernel's launches on its path, time, plain-version time,
    library time, largest difference and bound as one JSON line (kernel
    1's launches on each of its paths under launches_on, and its time and
-   bound at the lookup-training shape under lookup_training), then the
-   total seconds and the card line, then {"ok": true, "device": {...}} as
-   the last line.
+   bound at the lookup-training shape under lookup_training; kernels 2
+   and 3+4's launches on the subsurface path under launches_on and their
+   times and bounds at its shape under subsurface), then the total
+   seconds and the card line, then {"ok": true, "device": {...}} as the
+   last line.
 
 Every check raises on failure.  Without a CUDA device the script exits
 with status 1 and prints no result.  It imports nothing of JAX.
@@ -2413,6 +2438,175 @@ def phase_ecs(dev, _cuda, reps=5):
     return out
 
 
+SUN_PATH_TOL = 1e-4
+SUBSURFACE_TOL = 5e-3
+ISOTHERMAL_TOL = 1e-6
+
+
+def _sun_surface_call(what, fn, reps):
+    """Median wall ms of `reps` calls of fn, the peak memory of one call and
+    the busy share of a profiled one; logs them beside the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med, times = sync_ms(fn, reps)
+    wall, busy, n_ops = log_profile(f"{what} (float32)", fn, 8)
+    log(f"{what}, float32: median of {reps} calls {med:.2f} ms (calls {times}); busy "
+        f"{busy / wall:.1%} of a profiled call ({n_ops} device ops); peak memory of a call "
+        f"{peak:.2f} GiB; {card_line()}")
+    return dict(ms=med, busy=busy / wall, peak_gib=peak)
+
+
+def phase_sun_surface(dev, _cuda, kernels, reps=5):
+    """The sun in the pencil beam and the subsurface emission at full width
+    (see 14. above).  Adds kernels 2 and 3+4's launches and times on the
+    subsurface path to their entries in `kernels`."""
+    from arts_tpu_torch.disort import fused_kernel as FK
+    from arts_tpu_torch.disort.solver import solve_terms
+    from arts_tpu_torch.fwd import simulate_clearsky
+    from arts_tpu_torch.ops.eigh_jacobi import _default_sweeps
+    from arts_tpu_torch.ops.planck import planck
+    from arts_tpu_torch.scene import (
+        build_occultation_scan,
+        build_sky_almucantar,
+        build_subsurface_case,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    out = {}
+    for what, build in (("occultation scan", build_occultation_scan),
+                        ("sky almucantar", build_sky_almucantar)):
+        c = build(device=dev, dtype=f32)
+
+        def call(dt, c=c):
+            return simulate_clearsky(c.scene, c.f_grid, c.path_alt, c.path_dr, **c.kwargs(),
+                                     device=dev, dtype=dt)
+
+        _cuda.reset_launches()
+        got, want = call(f32), call(f64)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        require(not any(launches.values()), f"a kernel launched on the {what}: {launches}")
+        G, NP = c.path_alt.shape
+        require(tuple(got.shape) == (G, c.f_grid.numel()) and bool(torch.isfinite(got).all()),
+                f"{what}: output {tuple(got.shape)} not finite or not [G, F]")
+        gap = (got.double() - want).abs().amax(-1) / want.abs().amax(-1)
+        log(f"{what} ({G} paths of up to {NP} points x {c.f_grid.numel()} frequencies): "
+            f"float32 vs float64 on the same inputs, largest gap {float(gap.max()):.3e} of a "
+            f"path's own scale (limit {SUN_PATH_TOL}); launches {launches}")
+        require(float(gap.max()) <= SUN_PATH_TOL, f"{what}: float32 gap {float(gap.max()):.3e}")
+        trans = want / c.sun.spectrum.double()
+        if build is build_occultation_scan:
+            i183 = int((c.f_grid.double() - 183.31e9).abs().argmin())
+            log(f"{what}: radiance over the photosphere's (the transmittance plus the "
+                f"atmosphere's own emission, ~0.04 where opaque) at 183.31 GHz "
+                f"{[f'{float(x):.2e}' for x in trans[:, i183]]}, in the window (175 GHz) "
+                f"{[f'{float(x):.3f}' for x in trans[:, 0]]}, tangent heights "
+                f"{[round(float(h) / 1e3, 1) for h in c.labels]} km")
+            require(bool((trans[:, i183] < trans[:, 0]).all()),
+                    f"{what}: 183.31 GHz transmittance not below the window's")
+        else:
+            sky = trans[1:]
+            log(f"{what}: sky/sun at 400 nm {float(sky[:, -1].min()):.3e}-"
+                f"{float(sky[:, -1].max()):.3e}, at 700 nm {float(sky[:, 0].min()):.3e}-"
+                f"{float(sky[:, 0].max()):.3e}; the azimuth-0 pixel {float(trans[0, -1]):.3f} "
+                f"(400 nm) and {float(trans[0, 0]):.3f} (700 nm) of the photosphere")
+            require(bool((sky[:, -1] > sky[:, 0]).all()), f"{what}: the sky is not blue")
+            require(float(trans[0].min()) > 0.3 and float(want[0].min()) > 1e3 * float(
+                want[1:].max()), f"{what}: the azimuth-0 pixel does not see the photosphere")
+        out[what] = _sun_surface_call(what, lambda c=c: call(f32), reps)
+        del got, want, trans, c
+        torch.cuda.empty_cache()
+
+    c = build_subsurface_case(device=dev, dtype=f32)
+    fld, fg, idn, nq = c.field, c.f_grid, c.I_down, c.nquad
+    L, F = fld.depth.numel() - 1, fg.numel()
+
+    def sub_call(dt=f32, field=fld, I_down=idn, **kw):
+        return field.emerging_radiance_disort(fg, I_down, nquad=nq, device=dev, dtype=dt, **kw)
+
+    _cuda.reset_launches()
+    got = sub_call()
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"subsurface ({F} frequencies x {L} layers, {nq} streams) launches of one call: "
+        f"{launches}")
+    require(launches["disort_stage1"] == 1 and launches["disort_stage23"] == 1
+            and sum(launches.values()) == 2, f"subsurface launches {launches}")
+    require(torch.equal(got.u0, sub_call().u0), "subsurface: two float32 runs differ")
+    ref = sub_call(f64, plain=True)
+    r = rel(got.u0, ref.u0)
+    r_flux = rel(got.flux_up, ref.flux_up)
+    emerging = ref.u0[:, 0, nq // 2:]
+    log(f"subsurface: float32 fused (card) vs float64 plain on the same inputs, u0 {r:.3e} of "
+        f"scale (limit {SUBSURFACE_TOL}), flux_up {r_flux:.3e}; two float32 runs bit-identical; "
+        f"emerging radiance {float(emerging.min()):.3e}-{float(emerging.max()):.3e}, I_down "
+        f"{float(idn.min()):.3e}-{float(idn.max()):.3e}")
+    require(r <= SUBSURFACE_TOL, f"subsurface float32 u0 {r:.3e}")
+    t_deep = fld.t[-1].double()
+    iso = dataclasses.replace(fld, t=torch.full_like(fld.t, float(t_deep)), ssa=None, g=None)
+    b_iso = planck(fg.double(), t_deep)
+    u_iso = sub_call(f64, field=iso, I_down=b_iso).u0[:, 0, nq // 2:]
+    r_iso = float(((u_iso - b_iso[:, None]) / b_iso[:, None]).abs().max())
+    log(f"subsurface isothermal closure (I_down = B({float(t_deep)} K), no scattering, float64 "
+        f"kernels): emerging radiance within {r_iso:.3e} of B (limit {ISOTHERMAL_TOL})")
+    require(r_iso <= ISOTHERMAL_TOL, f"subsurface isothermal closure {r_iso:.3e}")
+    del ref, u_iso
+
+    # kernels 2 and 3+4 at the subsurface shape against their plain versions
+    res = {}
+    for dt, rtol in ((f64, 2e-5), (f32, 1e-4)):
+        t = solve_terms(fld.disort_input(fg, idn, nq, device=dev, dtype=dt), nq, 1)
+        s1 = FK.stage1_inputs(t["leg_scaled"], t["omega_p"], t["dtau_p"], t["tb0"], t["tb1"],
+                              lam=t["lam"], sign=t["sign"], mu=t["mu"], w=t["w"])
+        sw = _default_sweeps(dt)
+        a, b = FK.stage1(*s1, sw), FK.stage1_plain(*s1, sw)
+        pairs = [(a[0].sort(1).values, b[0].sort(1).values)] + list(zip(a[3:], b[3:]))
+        e1 = max(close(x, y, rtol, rtol, f"subsurface disort_stage1 {dt}")[0] for x, y in pairs)
+        ek, gp, gm, ut, vt, ub, vb = b
+        rhs, rsurf = FK.stage23_inputs(ut, vt, ub, vb, t["rsurf"], t["b_neg"], t["rhs_surf"])
+        s23 = (gp, gm, ek, rhs, rsurf, ut, vt, ub, vb)
+        x4, y4 = FK.stage23(*s23), FK.stage23_plain(*s23)
+        e23 = max(close(x, y, rtol, rtol, f"subsurface disort_stage23 {dt} {name}")[0]
+                  for name, x, y in zip(RADIANCES, x4, y4))
+        log(f"subsurface kernels vs plain, {str(dt)[6:]} [{L} layers x {F} lanes]: stage 1 "
+            f"max|diff| {e1:.3e}, stages 2+3 {e23:.3e} (rtol {rtol}, atol {rtol} * scale)")
+        res[dt] = (s1, s23, b, e1, e23, sw)
+    s1, s23, outs1, e1, e23, sw = res[f32]
+    n = math.isqrt(s1[0].shape[1])
+    B = s1[0].shape[2]
+    ms1 = cuda_ms(lambda: FK.stage1(*s1, sw), 10)
+    plain1 = cuda_ms(lambda: FK.stage1_plain(*s1, sw), 2)
+    b1 = bound(B * L * stage1_flops(n, sw), nbytes(*s1) + nbytes(*outs1))
+    ms23 = cuda_ms(lambda: FK.stage23(*s23), 10)
+    plain23 = cuda_ms(lambda: FK.stage23_plain(*s23), 2)
+    b23 = bound(B * stage23_flops(n, L), nbytes(*s23) + 4 * L * n * B * 4)
+    log(f"subsurface disort_stage1 float32 [{L} x {B}] n={n}: {ms1:.3f} ms (plain {plain1:.1f} "
+        f"ms), bound {b1[0]:.4f} ms ({b1[1]}); disort_stage23: {ms23:.3f} ms (plain "
+        f"{plain23:.1f} ms), bound {b23[0]:.4f} ms ({b23[1]}); {card_line()}")
+    del res, s1, s23, outs1
+    torch.cuda.empty_cache()
+
+    _cuda.reset_launches()
+    out["subsurface"] = _sun_surface_call("subsurface emission", sub_call, reps)
+    launches = dict(_cuda.LAUNCHES)
+    calls = reps + 3  # the warm-up, the peak-memory call and the profiled one
+    log(f"subsurface launches over {calls} calls: {launches}")
+    require(launches["disort_stage1"] == calls and launches["disort_stage23"] == calls,
+            f"subsurface: {launches} over {calls} calls")
+    for k, ms, plain, bd, err in ((kernels[1], ms1, plain1, b1, e1),
+                                  (kernels[2], ms23, plain23, b23, e23)):
+        k.setdefault("launches_on", {"allsky_main_path": k["launches"]})["subsurface"] = 1
+        k["subsurface"] = dict(ms=ms, plain_ms=plain, bound_ms=bd[0], bound_by=bd[1],
+                               max_abs_err=err, lanes=B, layers=L)
+    log(f"phase_sun_surface {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2469,6 +2663,8 @@ def main():
     kernels[0]["lookup_training"] = {k: lookup[k] for k in ("ms", "bound_ms", "train_ms")}
     torch.cuda.empty_cache()
     phase_ecs(dev, _cuda)
+    torch.cuda.empty_cache()
+    phase_sun_surface(dev, _cuda, kernels)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

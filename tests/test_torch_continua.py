@@ -195,10 +195,12 @@ def test_allsky_without_catalog():
 
 def test_ecs_scene_still_raises():
     """A scene with an ECS band no longer raises: its band adds to the
-    predefined models' absorption.  The sun in the pencil beam still
-    raises NotImplementedError (ROADMAP §A 7)."""
+    predefined models' absorption.  Nor does the sun in the pencil beam
+    (ported since): a path whose far end looks at the sun adds the
+    photosphere's radiance."""
     from arts_tpu_torch.lbl.ecs import make_o2_band, o2_erot
     from arts_tpu_torch.lbl.partfun import rigid_rotor_table
+    from arts_tpu_torch.sun import sun_blackbody
 
     ps, f = build_predef_scene(n_lev=4, n_freq=4, **CPU64)
     band = make_o2_band([dict(f0=56.26e9, a=1e-9, e0=o2_erot(1, 2), gu=3.0, Ju=1.0, Jl=2.0,
@@ -211,8 +213,9 @@ def test_ecs_scene_still_raises():
     I = F.simulate_clearsky(scene, f, *path, **CPU64)
     I0 = F.simulate_clearsky(dataclasses.replace(scene, ecs_bands=()), f, *path, **CPU64)
     assert bool(torch.isfinite(I).all()) and bool((I != I0).any())
-    with pytest.raises(NotImplementedError, match="sun"):
-        F.simulate_clearsky(scene, f, *path, sun=1.0, **CPU64)
+    I_sun = F.simulate_clearsky(scene, f, *path, path_za=[0.0, 0.0],
+                                sun=sun_blackbody(f, **CPU64), sun_za=0.0, **CPU64)
+    assert bool((I_sun > I).all())
 
 
 def test_scene_builders():

@@ -634,3 +634,42 @@ def test_ecs_scene_float32_matches_float64_on_the_card(dev, n_lev):
     I32, I64 = (simulate_clearsky(s, f, alt, dr, background="surface", device=dev,
                                   dtype=f.dtype) for s, f in ((s32, f32), (s64, f64)))
     assert float((I32.double() - I64).abs().max() / I64.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 2e-5), (torch.float32, 1e-4)])
+def test_subsurface_disort_launches_each_kernel_once(dev, dtype, rtol):
+    """scene.build_subsurface_case at 201 levels and 256 frequencies on the
+    card: emerging_radiance_disort launches disort_stage1 (thermal) and
+    disort_stage23 once each for all frequencies, and its intensities hold
+    against the plain versions at the kernels' tolerances (float64 2e-5,
+    float32 1e-4, rtol and atol of scale)."""
+    from arts_tpu_torch import _cuda
+    from arts_tpu_torch.scene import build_subsurface_case
+
+    c = build_subsurface_case(n_freq=256, device=dev, dtype=dtype)
+    _cuda.reset_launches()
+    got = c.field.emerging_radiance_disort(c.f_grid, c.I_down, nquad=c.nquad, device=dev,
+                                           dtype=dtype).u0
+    launches = dict(_cuda.LAUNCHES)
+    want = c.field.emerging_radiance_disort(c.f_grid, c.I_down, nquad=c.nquad, plain=True,
+                                            device=dev, dtype=dtype).u0
+    assert launches["disort_stage1"] == 1 and launches["disort_stage23"] == 1, launches
+    assert sum(launches.values()) == 2, launches
+    got, want = got.double(), want.double()
+    assert bool(((got - want).abs() <= rtol * want.abs().max() + rtol * want.abs()).all())
+
+
+@pytest.mark.parametrize("builder", ["build_occultation_scan", "build_sky_almucantar"])
+def test_sun_paths_float32_match_float64_on_the_card(dev, builder):
+    """The occultation scan and the almucantar at 512 frequencies on the
+    card, float32 against float64 on the same inputs (the float32 data cast
+    up), each path within 1e-4 of its own scale."""
+    from arts_tpu_torch import scene as S
+    from arts_tpu_torch.fwd import simulate_clearsky
+
+    c = getattr(S, builder)(n_freq=512, device=dev, dtype=torch.float32)
+    I32, I64 = (simulate_clearsky(c.scene, c.f_grid, c.path_alt, c.path_dr, **c.kwargs(),
+                                  device=dev, dtype=dt) for dt in (torch.float32, torch.float64))
+    assert I32.dtype == torch.float32 and bool(torch.isfinite(I32).all())
+    gap = (I32.double() - I64).abs().amax(-1) / I64.abs().amax(-1)
+    assert float(gap.max()) <= 1e-4, gap

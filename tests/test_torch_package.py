@@ -123,6 +123,27 @@ def _entry_points():
     )
     from arts_tpu_torch.scene import build_ecs_measurement, build_ecs_scene
 
+    from arts_tpu_torch.atm.subsurface import SubsurfaceField
+    from arts_tpu_torch.atm.surface import SurfaceField
+    from arts_tpu_torch.convert import (
+        subsurface_field_from_numpy,
+        sun_from_numpy,
+        surface_field_from_numpy,
+    )
+    from arts_tpu_torch.fwd import simulate_clearsky
+    from arts_tpu_torch.rtepack import surface as RS
+    from arts_tpu_torch.rtepack.scattering import rayleigh_scat_airsimple, rayleigh_scattering
+    from arts_tpu_torch.scene import (
+        build_occultation_scan,
+        build_sky_almucantar,
+        build_subsurface_case,
+    )
+    from arts_tpu_torch.sun import hit_sun, hit_sun_los, sun_blackbody, sun_from_grid
+
+    cpu_sun = lambda: sun_blackbody([1e11, 2e11], device="cpu")
+    sub = lambda: SubsurfaceField(depth=torch.tensor([0.0, 1.0]), t=torch.tensor([250.0, 260.0]),
+                                  absorption=torch.tensor([1.0, 1.0]))
+    k, n = [0.0, 0.6, -0.8], [0.0, 0.0, 1.0]
     lines = lambda: read_par(synth_par_rows(4), ["H2O", "O2"])
     o2 = [dict(f0=56.26e9, a=1e-9, e0=0.0, gu=3.0, Ju=1.0, Jl=2.0, Nu=1.0, Nl=1.0,
                g0=(2e4, 0.8))]
@@ -134,6 +155,34 @@ def _entry_points():
         "h2o_foreign_mtckd430", "h2o_foreign_closure_mtckd430")}
     return {
         **mtckd,
+        "sun_blackbody": lambda o: sun_blackbody([1e11]),
+        "sun_from_grid": lambda o: sun_from_grid([1e11], [9e10, 2e11], [1.0, 2.0]),
+        "hit_sun_los": lambda o: hit_sun_los(cpu_sun(), 10.0, 0.0, 10.0, 0.0),
+        "hit_sun": lambda o: hit_sun(cpu_sun(), (0.0, 0.0, 0.0), (10.0, 0.0), 6.371e6),
+        "sun_from_numpy": lambda o: sun_from_numpy({}),
+        "simulate_clearsky_sun": lambda o: simulate_clearsky(
+            o[0], o[1], [0.0, 1e3], [1e3], path_za=[0.0, 0.0], sun=cpu_sun(), sun_za=10.0,
+            scattered_sun=True),
+        "rayleigh_scattering": lambda o: rayleigh_scattering([10.0, 0.0], [20.0, 30.0]),
+        "rayleigh_scat_airsimple": lambda o: rayleigh_scat_airsimple([5e14], 1e5, 280.0),
+        "fresnel": lambda o: RS.fresnel(1.0, 1.5, 30.0),
+        "fresnel_reflectance": lambda o: RS.fresnel_reflectance(0.5, 0.4),
+        "fresnel_reflectance_specular": lambda o: RS.fresnel_reflectance_specular(0.5, 0.4, k, n),
+        "fresnel_reflectance_nonspecular": lambda o: RS.fresnel_reflectance_nonspecular(
+            0.5, 0.4, k, n, n),
+        "specular_reflected_direction": lambda o: RS.specular_reflected_direction(k, n),
+        "specular_radiance": lambda o: RS.specular_radiance([1.0] * 4, [0.5] * 4, 0.5, 0.4, k, n),
+        "nonspecular_radiance_from_patches": lambda o: RS.nonspecular_radiance_from_patches(
+            [[0.1, 0.0]], [0.0], [[1.0] * 4], [0.5] * 4, 0.5, 0.4, [0.0, 0.0], 100.0, n, n,
+            6.371e6, 0.1, 0.1),
+        "SurfaceField.constant": lambda o: SurfaceField.constant(),
+        "surface_field_from_numpy": lambda o: surface_field_from_numpy({}),
+        "emerging_radiance": lambda o: sub().emerging_radiance([1e10]),
+        "emerging_radiance_disort": lambda o: sub().emerging_radiance_disort([1e10], nquad=4),
+        "subsurface_field_from_numpy": lambda o: subsurface_field_from_numpy({}),
+        "build_occultation_scan": lambda o: build_occultation_scan(n_lev=3, n_freq=8, n_tan=1),
+        "build_sky_almucantar": lambda o: build_sky_almucantar(n_lev=3, n_freq=8, n_az=1),
+        "build_subsurface_case": lambda o: build_subsurface_case(n_lev=3, n_freq=8, n_atm=3),
         "predefined_absorption": lambda o: predefined_absorption(
             ("H2O-PWR98",), [22e9], 280.0, 9e4, {"H2O": 0.01}),
         "cia_absorption": lambda o: cia_absorption((), [1e11], 280.0, 9e4, [0.2, 0.8]),
